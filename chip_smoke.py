@@ -9,17 +9,24 @@ it, or when any phase fails:
 1. device: prints ``nvidia-smi --query-gpu=name,power.limit``;
 2. build: compiles ``segtpu_torch/csrc/*.cu`` for sm_90a into
    ``build/segtpu_torch/`` (one nvcc per source, started together);
-3. kernels: each kernel against its plain PyTorch version at every shape
-   the flagship forward (B=16, 512²) gives it, in f32 and bf16, with
-   kernel, plain and library times from CUDA events and the least time the
-   card could take (bound);
+3. kernels: each kernel against its plain PyTorch version, in f32 and
+   bf16, with kernel, plain and library times from CUDA events and the
+   least time the card could take (bound): the gate and the upsample at
+   every shape the flagship forward (B=16, 512²) gives them, the
+   conv3×3+BN+ReLU and the fused decoder pair at the flagship's four
+   decoder blocks (B=16);
 4. serving, attention model: the flagship resnet34 attention U-Net in bf16
    answers 3 ``predict_proba`` requests of 16 images of 512², through the
    attention-gate kernel (4 launches per forward), held against the same
    weights run without kernels in f32;
 5. serving, no-attention model: the same, through the upsample+concat
    kernel (2 launches per forward at B=16);
-6. one JSON line ``{"kernels": [...]}``, then the card line, then the
+6. benches: ``segtpu_torch.tools.kernel_bench`` and ``fused_block_bench``
+   through ``main(argv)`` at their full widths (B=8, bf16), the only paths
+   that run the conv and pair kernels; each wrapper must have launched
+   exactly as often as the bench called it, and each case must agree with
+   its plain version;
+7. one JSON line ``{"kernels": [...]}``, then the card line, then the
    result line ``{"ok": true, "device": {...}}``.
 
 The weights are random, made from a fixed seed; the BatchNorm running
@@ -45,20 +52,37 @@ GATE_SHAPES = ((256, 256, 128, 32), (128, 128, 64, 64), (64, 64, 32, 128),
 # Fused upsample levels of one flagship forward at B=16 (levels 3 and 2):
 # (Cin, Co, Cs, H=W of x).
 UPSAMPLE_SHAPES = ((256, 128, 128, 32), (128, 64, 64, 64))
+# Decoder blocks of the flagship at B=16, 512², levels 4..1: (H=W, Cin,
+# Cout) of the pair, whose first conv is also the conv3x3 case.
+DECODER_SHAPES = ((32, 512, 256), (64, 256, 128), (128, 128, 64),
+                  (256, 96, 32))
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and dense operations/s
 # by input type (bf16 on the tensor cores, f32 on the CUDA cores).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-# f32: kernel and plain version both sum at most 512 f32 products, in other
-# orders; 1e-4 of the output's scale is far above that reassociation noise
-# and far below any indexing or tap error.
+# f32: kernel and plain version sum the same f32 products in other orders
+# (at most 9·512 = 4608 of them, the conv at level 4; the pair's conv 2
+# adds 2304 more on an f32 intermediate): a relative error of about
+# √K·2^-24 ≈ 4e-6 of the output's scale. 1e-4 of that scale is far above
+# this reassociation noise and far below any indexing, tap or halo error.
 TOL_F32 = 1e-4
 # bf16: the kernel rounds its f32 result to bf16 once (half an ulp,
 # 2^-8 of the value); 2^-7 of the output's scale leaves room for the
 # summation order. The reference is the plain version in f32 on the same
 # bf16-rounded inputs. (The Pallas kernel also rounds the hidden map and
 # alpha to bf16; this kernel keeps both in f32, so it is the closer one.)
+# The conv3x3 is held the same way. The pair rounds its intermediate to
+# bf16 before conv 2, as the reference function does, so its reference is
+# the plain version with that rounding and conv 2 in f32: the kernel's and
+# the plain version's f32 sums differ by reassociation, which can flip the
+# bf16 rounding of an intermediate element (one ulp, ≤ 2^-7 of it) at a
+# few elements; conv 2 (K = 9·C ≤ 2304, weights ~1/√K) carries a flip
+# into an output at about 2^-7/√K of its scale, so 2^-7 holds as well.
 TOL_BF16 = 2.0 ** -7
+# The benches compare with the plain version in bf16: both round the final
+# value, so they may sit one ulp (≤ 2^-7 of the value) apart before any
+# of the flips above: 2^-6 of the output's scale.
+TOL_BENCH_BF16 = 2.0 ** -6
 # Serving: bf16 model vs the f32 model without kernels (TF32 off). bf16
 # keeps 8 significant bits through ~70 layers, and the head sums 16
 # channels whose terms largely cancel, so a logit's error is a larger
@@ -179,19 +203,86 @@ def _upsample_case(shape, dtype, gen, device):
     return args, ref, nbytes, ops, library
 
 
+def _conv_params(r, rand, dtype, cin, cout):
+    """w (3,3,Cin,Cout) in ``dtype``, scaled so the sums are O(1), and
+    f32 scale and bias (Cout,)."""
+    w = r(3, 3, cin, cout) / (3 * cin ** 0.5)
+    return [w.to(dtype), 0.5 + rand(cout), r(cout) * 0.1]
+
+
+def _folded_conv(w, scale, bias):
+    """The library yardstick of one conv3x3+BN+ReLU, as a function of an
+    NCHW input: ``F.conv2d`` in the working dtype on channels_last
+    tensors, scale folded into the weights (outside the timed call),
+    bias, ReLU."""
+    import torch.nn.functional as F
+    wl = (w.float() * scale).permute(3, 2, 0, 1).to(w.dtype).contiguous(
+        memory_format=torch.channels_last)
+    bl = bias.to(w.dtype)
+    return lambda inp: torch.relu_(F.conv2d(inp, wl, bl, padding=1))
+
+
+def _conv_case(shape, dtype, gen, device):
+    from segtpu_torch.kernels.fused_conv import conv3x3_bn_relu_plain
+    hw, cin, cout = shape
+    r = lambda *s: torch.randn(*s, generator=gen, device=device)
+    rand = lambda *s: torch.rand(*s, generator=gen, device=device)
+    args = [r(BATCH, hw, hw, cin).to(dtype)] + _conv_params(
+        r, rand, dtype, cin, cout)
+    ref = conv3x3_bn_relu_plain(*[t.float() for t in args])
+    m = BATCH * hw * hw
+    es = torch.finfo(dtype).bits // 8
+    nbytes = es * (m * cin + 9 * cin * cout + m * cout) + 4 * 2 * cout
+    ops = 2 * m * 9 * cin * cout
+    conv, xl = _folded_conv(*args[1:]), args[0].permute(0, 3, 1, 2)
+    return args, ref, nbytes, ops, lambda: conv(xl)
+
+
+def _pair_case(shape, dtype, gen, device):
+    from segtpu_torch.kernels.fused_conv import conv3x3_bn_relu_plain
+    hw, cin, c = shape
+    r = lambda *s: torch.randn(*s, generator=gen, device=device)
+    rand = lambda *s: torch.rand(*s, generator=gen, device=device)
+    x = r(BATCH, hw, hw, cin).to(dtype)
+    first = _conv_params(r, rand, dtype, cin, c)
+    second = _conv_params(r, rand, dtype, c, c)
+    args = [x] + first + second
+    # the reference function, its intermediate rounded to the I/O type,
+    # with conv 2 and the result in f32
+    mid = conv3x3_bn_relu_plain(x, *first)
+    ref = conv3x3_bn_relu_plain(mid.float(), *[t.float() for t in second])
+    del mid
+    m = BATCH * hw * hw
+    es = torch.finfo(dtype).bits // 8
+    nbytes = (es * (m * cin + 9 * cin * c + 9 * c * c + m * c)
+              + 4 * 4 * c)
+    ops = 2 * m * 9 * c * (cin + c)
+    conv1, conv2 = _folded_conv(*first), _folded_conv(*second)
+    xl = x.permute(0, 3, 1, 2)
+    return args, ref, nbytes, ops, lambda: conv2(conv1(xl))
+
+
 def phase_kernels(device="cuda") -> dict:
     """Each kernel vs its plain version at the flagship shapes, f32 and
     bf16. Returns {name: [per-shape records]} of the bf16 runs."""
     from segtpu_torch.kernels.attention_gate import (attention_gate,
                                                      attention_gate_plain)
-    from segtpu_torch.kernels.fused_conv import (upsample2x_concat,
+    from segtpu_torch.kernels.fused_block import (conv_pair_bn_relu,
+                                                  conv_pair_bn_relu_plain)
+    from segtpu_torch.kernels.fused_conv import (conv3x3_bn_relu,
+                                                 conv3x3_bn_relu_plain,
+                                                 upsample2x_concat,
                                                  upsample2x_concat_plain)
     gen = torch.Generator(device=device).manual_seed(SEED)
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=device)
     table = (("attention_gate", attention_gate, attention_gate_plain,
               _gate_case, GATE_SHAPES),
              ("upsample2x_concat", upsample2x_concat,
-              upsample2x_concat_plain, _upsample_case, UPSAMPLE_SHAPES))
+              upsample2x_concat_plain, _upsample_case, UPSAMPLE_SHAPES),
+             ("conv3x3_bn_relu", conv3x3_bn_relu, conv3x3_bn_relu_plain,
+              _conv_case, DECODER_SHAPES),
+             ("conv_pair_bn_relu", conv_pair_bn_relu,
+              conv_pair_bn_relu_plain, _pair_case, DECODER_SHAPES))
     records = {name: [] for name, *_ in table}
     for name, kernel, plain, case, shapes in table:
         for dtype in (torch.float32, torch.bfloat16):
@@ -217,6 +308,7 @@ def phase_kernels(device="cuda") -> dict:
                 print("  " + json.dumps(rec), flush=True)
                 if dtype == torch.bfloat16:
                     records[name].append(rec)
+                del args, ref, library
     return records
 
 
@@ -342,6 +434,37 @@ def phase_serving(use_attention: bool, device="cuda", batch=BATCH,
     return res
 
 
+def phase_benches(device="cuda") -> dict:
+    """Both bench entry points through ``main(argv)`` at their full widths,
+    each with the launch counts set to 0 just before it and read just
+    after: every wrapper must have launched exactly as often as the bench
+    called it, and every case must agree with its plain version. Returns
+    the launches of each wrapper over both benches."""
+    from segtpu_torch.kernels import launch_counts, reset_launch_counts
+    from segtpu_torch.tools import fused_block_bench, kernel_bench
+    total = {}
+    for tool in (kernel_bench, fused_block_bench):
+        name = tool.__name__.rsplit(".", 1)[-1]
+        reset_launch_counts()
+        res = tool.main(["--device", str(device)])
+        counts = launch_counts()
+        want = {k: res["calls"].get(k, 0) for k in counts}
+        check(counts == want and sum(want.values()) > 0,
+              f"{name}: launches {counts} equal the bench's calls {want}")
+        for row in res["rows"]:
+            print("  " + json.dumps({k: v for k, v in row.items()
+                                     if k not in ("device", "clock")}))
+            tol = TOL_BENCH_BF16 * max(1.0, row["ref_max_abs"])
+            what = " ".join(f"{k}={row[k]}" for k in (
+                "case", "h", "cin", "cout", "cskip") if k in row)
+            check(row["max_abs_err"] <= tol,
+                  f"{name} {what}: max_abs_err {row['max_abs_err']:.3g} "
+                  f"(tol {tol:.3g})")
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
 KERNEL_META = {
     "attention_gate": dict(
         source="segtpu_torch/csrc/attention_gate.cu",
@@ -349,6 +472,12 @@ KERNEL_META = {
     "upsample2x_concat": dict(
         source="segtpu_torch/csrc/upsample2x_concat.cu",
         replaces="segtpu/kernels/fused_conv.py:144"),
+    "conv3x3_bn_relu": dict(
+        source="segtpu_torch/csrc/conv3x3_bn_relu.cu",
+        replaces="segtpu/kernels/fused_conv.py:83"),
+    "conv_pair_bn_relu": dict(
+        source="segtpu_torch/csrc/conv_pair_bn_relu.cu",
+        replaces="segtpu/kernels/fused_block.py:76"),
 }
 
 
@@ -360,15 +489,22 @@ def main() -> int:
     records = phase_kernels()
     served = {"attention_gate": phase_serving(True),
               "upsample2x_concat": phase_serving(False)}
+    benched = phase_benches()
+    # each kernel's launches on its own main path: the serving model that
+    # runs it, or the bench entry points for the conv and the pair
+    launches = {"attention_gate": served["attention_gate"]["launches"],
+                "upsample2x_concat": served["upsample2x_concat"]["launches"],
+                "conv3x3_bn_relu": benched["conv3x3_bn_relu"],
+                "conv_pair_bn_relu": benched["conv_pair_bn_relu"]}
 
-    # per kernel: the sums over one flagship forward's launches (bf16)
+    # per kernel: the sums over its flagship shapes (bf16)
     kernels = []
     for name, recs in records.items():
         total = lambda key: sum(r[key] for r in recs)
         lib = [r["library_ms"] for r in recs]
         kernels.append(dict(
             name=name, route="cuda", **KERNEL_META[name],
-            launches=served[name]["launches"],
+            launches=launches[name],
             max_abs_err=max(r["max_abs_err"] for r in recs),
             ms=total("ms"), plain_ms=total("plain_ms"),
             bound_ms=total("bound_ms"),

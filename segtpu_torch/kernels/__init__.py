@@ -7,10 +7,13 @@ from __future__ import annotations
 from typing import Dict
 
 from segtpu_torch.kernels.attention_gate import attention_gate
-from segtpu_torch.kernels.fused_conv import upsample2x_concat
+from segtpu_torch.kernels.fused_block import conv_pair_bn_relu
+from segtpu_torch.kernels.fused_conv import conv3x3_bn_relu, upsample2x_concat
 
 WRAPPERS = {"attention_gate": attention_gate,
-            "upsample2x_concat": upsample2x_concat}
+            "upsample2x_concat": upsample2x_concat,
+            "conv3x3_bn_relu": conv3x3_bn_relu,
+            "conv_pair_bn_relu": conv_pair_bn_relu}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -96,6 +96,17 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def launcher(name: str, argtypes):
+    """The entry ``<name>_launch`` of ``csrc/<name>.cu`` (built and loaded
+    at first use) with its C argument types declared; it returns the CUDA
+    error code of the launch."""
+    fn = getattr(load(name), f"{name}_launch")
+    if fn.argtypes is None:
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def check(name: str, code: int) -> None:
     """Raise if a launch entry returned a CUDA error (its
     ``cudaGetLastError()`` right after the launch)."""

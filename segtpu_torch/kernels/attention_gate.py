@@ -62,15 +62,10 @@ def _check(g, x, ag, ax, bh, apsi, bpsi):
         raise TypeError("attention_gate: bh and bpsi must be float32")
 
 
-def _launcher():
-    fn = _build.load("attention_gate").attention_gate_launch
-    if fn.argtypes is None:
-        p = ctypes.c_void_p
-        fn.argtypes = [ctypes.c_int, p, p, p, p, p, p, p, p,
-                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, p]
-        fn.restype = ctypes.c_int
-    return fn
+# C signature of attention_gate_launch: dtype, g, x, ag, ax, bh, apsi,
+# bpsi, out, m, cg, cx, f, stream
+ARGTYPES = ((ctypes.c_int,) + (ctypes.c_void_p,) * 8
+            + (ctypes.c_longlong,) + (ctypes.c_int,) * 3 + (ctypes.c_void_p,))
 
 
 def attention_gate(g, x, ag, ax, bh, apsi, bpsi):
@@ -87,7 +82,7 @@ def attention_gate(g, x, ag, ax, bh, apsi, bpsi):
     if x.device.type != "cuda":
         raise ValueError(f"attention_gate: unsupported device {x.device}")
     out = torch.empty_like(x)
-    fn = _launcher()
+    fn = _build.launcher("attention_gate", ARGTYPES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = fn(DTYPE_CODES[x.dtype], g.data_ptr(), x.data_ptr(),

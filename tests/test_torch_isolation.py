@@ -37,6 +37,17 @@ def test_source_imports_nothing_of_jax(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def test_sources_cover_every_port_module():
+    """The glob above reaches the kernel wrappers and the bench tools, so
+    the two tests here check them too."""
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    for mod in ("kernels/attention_gate.py", "kernels/fused_conv.py",
+                "kernels/fused_block.py", "tools/__init__.py",
+                "tools/kernel_bench.py", "tools/fused_block_bench.py"):
+        assert f"segtpu_torch/{mod}" in names
+    assert "chip_smoke.py" in names
+
+
 def test_package_imports_with_jax_blocked():
     """Every module of the port imports with jax, flax and segtpu made
     unimportable."""

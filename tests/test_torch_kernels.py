@@ -6,6 +6,10 @@ against on the card) to the Pallas kernels run in interpret mode, on the
 same numpy inputs.
 """
 
+import ctypes
+import importlib
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -17,7 +21,7 @@ from segtpu.kernels.attention_gate import attention_gate_fused
 from segtpu.kernels.fused_conv import (fold_bn as jax_fold_bn,
                                        upsample2x_concat_pallas,
                                        upsample2x_concat_xla)
-from segtpu_torch.kernels import launch_counts
+from segtpu_torch.kernels import WRAPPERS, _build, launch_counts
 from segtpu_torch.kernels.attention_gate import attention_gate
 from segtpu_torch.kernels.fused_conv import fold_bn, upsample2x_concat
 from segtpu_torch.models.convert import conv_transpose_weight
@@ -148,3 +152,33 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(rng):
     with pytest.raises(ValueError, match="skip"):
         upsample2x_concat(x, _wv(np.zeros((2, 2, 8, 4), np.float32)),
                           torch.zeros(4), torch.zeros((1, 4, 4, 2)))
+
+
+# Each wrapper's module and the name of its C argument-type tuple.
+ARGTYPES = {"attention_gate": ("attention_gate", "ARGTYPES"),
+            "upsample2x_concat": ("fused_conv", "UPSAMPLE_ARGTYPES"),
+            "conv3x3_bn_relu": ("fused_conv", "CONV3X3_ARGTYPES"),
+            "conv_pair_bn_relu": ("fused_block", "ARGTYPES")}
+
+
+def test_every_kernel_source_has_a_wrapper():
+    assert sorted(p.stem for p in _build.CSRC.glob("*.cu")) == sorted(
+        WRAPPERS) == sorted(ARGTYPES)
+
+
+@pytest.mark.parametrize("name", sorted(ARGTYPES))
+def test_argtypes_match_the_c_entry(name):
+    """The ctypes declaration of ``<name>_launch`` matches the C signature
+    in ``csrc/<name>.cu`` parameter for parameter: a pointer or a 64-bit
+    count declared as a 32-bit int would be cut, which no CPU run shows."""
+    mod, attr = ARGTYPES[name]
+    declared = getattr(importlib.import_module(
+        f"segtpu_torch.kernels.{mod}"), attr)
+    src = (_build.CSRC / f"{name}.cu").read_text()
+    sig = re.search(rf'extern "C" int {name}_launch\((.*?)\)', src, re.S)
+    c_types = {"int": ctypes.c_int, "long long": ctypes.c_longlong}
+    want = []
+    for param in sig.group(1).split(","):
+        ctype = " ".join(param.split()[:-1])
+        want.append(ctypes.c_void_p if "*" in ctype else c_types[ctype])
+    assert list(declared) == want
