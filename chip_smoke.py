@@ -8,13 +8,16 @@ it, or when any phase fails:
 
 1. device: prints ``nvidia-smi --query-gpu=name,power.limit``;
 2. build: compiles ``segtpu_torch/csrc/*.cu`` for sm_90a into
-   ``build/segtpu_torch/`` (one nvcc per source, started together);
+   ``build/segtpu_torch/`` (one nvcc per source, started together),
+   prints each entry function's registers and spills, and fails if a
+   bf16 tensor-core instantiation of the conv or the pair spills;
 3. kernels: each kernel against its plain PyTorch version, in f32 and
-   bf16, with kernel, plain and library times from CUDA events and the
-   least time the card could take (bound): the gate and the upsample at
-   every shape the flagship forward (B=16, 512²) gives them, the
-   conv3×3+BN+ReLU and the fused decoder pair at the flagship's four
-   decoder blocks (B=16);
+   bf16, with kernel, plain and library times from CUDA events, the
+   least time the card could take (bound), the achieved TFLOP/s of the
+   function's operations and the bound's share of the kernel's time:
+   the gate and the upsample at every shape the flagship forward (B=16,
+   512²) gives them, the conv3×3+BN+ReLU and the fused decoder pair at
+   the flagship's four decoder blocks (B=16);
 4. serving, attention model: the flagship resnet34 attention U-Net in bf16
    answers 3 ``predict_proba`` requests of 16 images of 512², through the
    attention-gate kernel (4 launches per forward), held against the same
@@ -37,6 +40,7 @@ from __future__ import annotations
 
 import copy
 import json
+import re
 import subprocess
 import sys
 import time
@@ -146,18 +150,56 @@ def phase_device() -> str:
     return card
 
 
+def _entry_label(line: str) -> str:
+    """``kernel<template arguments>`` from ptxas's "Compiling entry
+    function '<mangled name>'" line, e.g. ``pair_bf16_kernel<8,16,2,4,4,16,
+    3>`` or ``conv_f32_kernel<f,64>``."""
+    mangled = line.split("'")[1] if "'" in line else line
+    # a name is mangled as <length><name>: try every digit run's suffixes
+    for m in re.finditer(r"(?=(\d+))", mangled):
+        end = m.start() + len(m.group(1))
+        name = mangled[end:end + int(m.group(1))]
+        if name.endswith("_kernel") and name[:1].isalpha():
+            rest = mangled[end + len(name):]
+            args = re.findall(r"Li(\d+)E|(13__nv_bfloat16)|^I(f)", rest)
+            args = ["bf16" if b else n or f for n, b, f in args]
+            return f"{name}<{','.join(args)}>"
+    return mangled
+
+
 def phase_build() -> None:
+    """Compile every kernel; print each entry function's registers and
+    spills from ``-Xptxas -v``, and fail if a bf16 tensor-core
+    instantiation (the conv's or the pair's) spills, or if ptxas
+    serialised a warpgroup around its ``wgmma`` products (note C7519,
+    "warpgroup.arrive is injected")."""
     from segtpu_torch.kernels import _build
     t0 = time.perf_counter()
     built = _build.build()
     print(f"build: {len(built)} kernel libraries in "
           f"{time.perf_counter() - t0:.1f} s into {_build.BUILD_DIR}",
           flush=True)
+    spills, serialised = {}, 0
     for name, info in built.items():
+        serialised += info["log"].count("(C7519)")
         print(f"  {name}: {info['seconds']:.1f} s")
+        entry = name
         for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                print("   ", line.strip())
+            if "Compiling entry function" in line:
+                entry = _entry_label(line)
+            elif "registers" in line or "spill" in line or "warning" in line:
+                print(f"    {entry}: {line.strip()}")
+                m = re.search(r"(\d+) bytes spill stores", line)
+                if m:
+                    spills[entry] = int(m.group(1))
+    tc = {k: v for k, v in spills.items()
+          if re.search(r"_(bf16|wgmma)_kernel<", k)}
+    if {"conv3x3_bn_relu", "conv_pair_bn_relu"} & built.keys():
+        check(len(tc) > 0 and not any(tc.values()),
+              f"build: 0 spill bytes in the {len(tc)} bf16 tensor-core "
+              f"instantiations ({tc})")
+        check(serialised == 0, f"build: {serialised} wgmma serialisation "
+              "notes (C7519)")
 
 
 def _gate_case(shape, dtype, gen, device):
@@ -305,6 +347,10 @@ def phase_kernels(device="cuda") -> dict:
                            library_ms=(time_ms(library, flush=flush)
                                        if library else None))
                 rec["bound_ms"], rec["bound_by"] = bound(nbytes, ops, dtype)
+                # achieved rate of the function's own operations, and the
+                # share of the least time the kernel reaches
+                rec["tflops"] = ops / rec["ms"] * 1e-9
+                rec["bound_share"] = rec["bound_ms"] / rec["ms"]
                 print("  " + json.dumps(rec), flush=True)
                 if dtype == torch.bfloat16:
                     records[name].append(rec)

@@ -162,8 +162,13 @@ def conv3x3_bn_relu(x, w, scale, bias, *, tile: int = 64):
     x (B,H,W,Cin) NHWC-contiguous, w (3,3,Cin,Cout) HWIO in x's dtype
     (float32 or bfloat16); scale and bias (Cout,) float32. Returns
     (B,H,W,Cout) in x's dtype. ``tile`` is the JAX kernel's spatial tile,
-    kept so the two signatures match; this kernel picks its own tiling and
-    masks its own ragged edge, so H and W need not divide by anything. A
+    kept so the two signatures match; this kernel picks its own tiling: in
+    bf16, a tensor-core product from a haloed window staged once per chunk
+    of input channels, 16×32 output pixels × 64 channels on ``wgmma``
+    above Cout = 32 and 16×16 × 32 on ``mma.sync`` up to it, bounded on
+    the card by the products' issue rate (one block per SM, no producer
+    warp); in f32, flat pixel tiles on the CUDA cores. It masks its own
+    ragged edge, so H and W need not divide by anything. A
     CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (and counts the launch) or raises.
     """

@@ -28,7 +28,8 @@ import torch.nn.functional as F
 
 from segtpu_torch import resolve_device
 from segtpu_torch.kernels.fused_block import (conv_pair_bn_relu,
-                                              conv_pair_bn_relu_plain)
+                                              conv_pair_bn_relu_plain,
+                                              pair_tile)
 from segtpu_torch.tools import device_label, run_case, seeded
 
 # (H, Cin, Cout): 512² flagship decoder conv pairs, level 4..1
@@ -65,7 +66,8 @@ def bench_pair(bs, h, cin, cout, dtype=torch.bfloat16, *, device="cuda",
         return torch.relu_(F.conv2d(mid, wl2, bl2, padding=1))
 
     rec = dict(h=h, cin=cin, cout=cout, bs=bs,
-               dtype=str(dtype).removeprefix("torch."), **device_label(dev))
+               dtype=str(dtype).removeprefix("torch."),
+               tile=pair_tile(cout, dtype), **device_label(dev))
     rec.update(run_case(kernel, library,
                         lambda: conv_pair_bn_relu_plain(*args), dev, iters))
     rec["rel_err"] = rec["max_abs_err"] / max(1e-3, rec["ref_max_abs"])
@@ -78,12 +80,15 @@ def bench_pair(bs, h, cin, cout, dtype=torch.bfloat16, *, device="cuda",
 
 
 def summary(rows, bs) -> None:
-    print(f"\nfused decoder pair, bs={bs}, bf16, kernel tile 8x8")
-    print(f"{'shape':<22}{'library ms':>12}{'kernel ms':>11}{'ratio':>8}")
+    print(f"\nfused decoder pair, bs={bs}, bf16")
+    print(f"{'shape':<22}{'tile':>6}{'library ms':>12}{'kernel ms':>11}"
+          f"{'ratio':>8}")
     for r in rows:
         sh = f"{r['h']}x{r['h']} {r['cin']}->{r['cout']}"
-        print(f"{sh:<22}{r['library_ms']:>12.3f}{r['kernel_ms']:>11.3f}"
-              f"{r['kernel_ms'] / r['library_ms']:>7.2f}x")
+        tile = "x".join(map(str, r["tile"]))
+        ratio = r["kernel_ms"] / r["library_ms"]
+        print(f"{sh:<22}{tile:>6}{r['library_ms']:>12.3f}"
+              f"{r['kernel_ms']:>11.3f}{ratio:>7.2f}x")
 
 
 def main(argv=None) -> dict:

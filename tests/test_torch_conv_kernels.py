@@ -9,6 +9,8 @@ in interpret mode and to their ``_xla`` oracles. f32 tolerance: atol
 1e-4, the bar of tests/test_kernels.py for these kernels.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -26,9 +28,10 @@ from segtpu.kernels.fused_conv import (conv3x3_bn_relu_pallas,
 from segtpu.models.unet import UNetWithBackbone as JaxUNet
 from segtpu.models.unet import _DecoderBlock as JaxDecoderBlock
 from segtpu.models.unet import create_model_state
-from segtpu_torch.kernels import launch_counts
-from segtpu_torch.kernels.fused_block import (SMEM_LIMIT, conv_pair_bn_relu,
-                                              smem_bytes)
+from segtpu_torch.kernels import _build, launch_counts
+from segtpu_torch.kernels.fused_block import (BF16_TILES, F32_TILE,
+                                              SMEM_LIMIT, conv_pair_bn_relu,
+                                              pair_tile, smem_bytes)
 from segtpu_torch.kernels.fused_conv import conv3x3_bn_relu, upsample2x_concat
 from segtpu_torch.models.convert import conv_transpose_weight, state_dict_from_jax
 from segtpu_torch.models.unet import UNetWithBackbone
@@ -279,3 +282,56 @@ def test_pair_fits_shared_memory_at_every_decoder_width():
         for dtype in (torch.float32, torch.bfloat16):
             assert smem_bytes(c, dtype) <= SMEM_LIMIT
     assert smem_bytes(512, torch.float32) > SMEM_LIMIT
+
+
+def test_pair_shared_memory_mirror_matches_the_kernel_source():
+    """``fused_block.py``'s tile constants are those of
+    ``csrc/conv_pair_bn_relu.cu``: the bf16 ``PairTile`` instances in the
+    order the launcher tries them, the limit it tries them against, and
+    the f32 kernel's tile and chunk. A tile changed in the ``.cu`` alone
+    would let the wrapper pass a width whose launch fails on the card."""
+    src = (_build.CSRC / "conv_pair_bn_relu.cu").read_text()
+    # PairTile<TH, TW, WM, WN, NT, KC, STAGES> (mma.sync, NC = 8·WN·NT)
+    # and PairWgTile<TH, TW, WM, WN, KC, STAGES> (wgmma, NC = 64·WN)
+    tiles = {}
+    for name, kind, args in re.findall(
+            r"using (\w+) = (PairTile|PairWgTile)<([\d, ]+)>;", src):
+        a = tuple(map(int, args.split(",")))
+        tiles[name] = ((a[0], a[1], 8 * a[3] * a[4], a[5], a[6], False)
+                       if kind == "PairTile"
+                       else (a[0], a[1], 64 * a[3], a[4], a[5], True))
+    order = ["NarrowTile", "BigTile", "RectTile", "SmallTile"]
+    launches = re.findall(r"return launch_bf16<(\w+)(, true)?>", src)
+    assert [n for n, _ in launches] == order
+    # the launcher's kernel for each tile is the one its mirror names
+    assert [bool(w) for _, w in launches] == [t[5] for t in BF16_TILES]
+    assert "if (c <= NarrowTile::NC)" in src
+    for name in order[1:-1]:
+        assert f"if ({name}::smem_bytes(c) <= kSmemLimit)" in src
+    assert tuple(tiles[n] for n in order) == BF16_TILES
+    limit = re.search(r"constexpr long long kSmemLimit = (\d+);", src)
+    assert int(limit.group(1)) == SMEM_LIMIT
+    f32 = dict(re.findall(r"constexpr int (kT|kKC) = (\d+);", src))
+    assert ((int(f32["kT"]),) * 2, int(f32["kKC"])) == (F32_TILE, 16)
+    # the smem formulas themselves: ring + M1 rows of Cp + 8 channels,
+    # the wgmma ring in 1024-byte stages behind 1024 bytes of alignment
+    assert "return kRingBytes + 2LL * M1 * ((c + 15) / 16 * 16 + 8);" in src
+    assert ("return 1024 + kRingBytes + 2LL * M1 * ((c + 15) / 16 * 16 + 8);"
+            in src)
+    assert "(kWeightBytes + kWindowBytes + 1023) / 1024 * 1024" in src
+
+
+@pytest.mark.parametrize("c, tile", [(20, (16, 16)), (32, (16, 16)),
+                                     (33, (16, 16)), (192, (16, 16)),
+                                     (193, (8, 16)), (256, (8, 16)),
+                                     (257, (8, 8)), (401, (8, 8)),
+                                     (928, (8, 8))])
+def test_pair_bf16_tile_choice(c, tile):
+    """16×16 while the 18² intermediate fits beside the ring (C <= 192),
+    8×16 up to C = 256 (the flagship's widest), 8×8 above; every width the
+    kernel took before its tensor-core redesign (bf16 C <= 928) still
+    fits, and 1024 does not."""
+    assert pair_tile(c, torch.bfloat16) == tile
+    assert smem_bytes(c, torch.bfloat16) <= SMEM_LIMIT
+    assert pair_tile(c, torch.float32) == F32_TILE
+    assert smem_bytes(1024, torch.bfloat16) > SMEM_LIMIT

@@ -62,8 +62,16 @@ def _conv_params(gen, dev, dtype, cin, cout):
 
 
 # (B, H, W, Cin, Cout): ragged H/W with Cin < one chunk and Cout <= 32 (the
-# narrow tile); two and a half 64-channel tiles; an even case.
-CONV_SHAPES = [(2, 13, 19, 5, 24), (1, 9, 70, 40, 136), (3, 8, 8, 64, 64)]
+# narrow tile); two and a half 64-channel tiles; an even case. Then the
+# bf16 tiles' edges (16x16 pixels x 32 channels on mma.sync, 16 input
+# channels per stage; 16x32 x 64 on wgmma, 32 per stage): H and W that
+# leave partial tiles in both directions; Cin = 8, 16, 24, so the pipeline
+# is deeper than the K loop; Cin = 5 (rows not 16-byte aligned: plain-load staging) and 40 (a
+# half-empty tail chunk); Cout = 72, 136 (partial column blocks) and 33
+# (plain-load weights, element-wise stores).
+CONV_SHAPES = [(2, 13, 19, 5, 24), (1, 9, 70, 40, 136), (3, 8, 8, 64, 64),
+               (2, 21, 37, 16, 72), (1, 19, 23, 8, 136), (2, 17, 33, 24, 32),
+               (1, 13, 19, 5, 64), (1, 11, 12, 40, 33)]
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
@@ -82,17 +90,27 @@ def test_conv3x3_kernel_matches_plain(cuda, shape, dtype):
 
 # (B, H, W, Cin, C): ragged H/W, C not a multiple of the 16-channel chunk
 # and <= 32; C between 32 and 64; C over one 64-channel tile; a tile-sized
-# image with a wide input.
+# image with a wide input. Then the bf16 tiles' edges (16x16 output tiles
+# with 32-channel chunks up to C = 32 on mma.sync and 64-channel chunks up
+# to 192 on wgmma, 8x16 with 128-channel chunks up to 256 on wgmma, 8x8
+# with 32-channel chunks above on mma.sync): partial tiles in both
+# directions with Cin = 8; C = 72 and 136 (a partial last chunk) with
+# Cin = 24; C = 192, the widest 16x16 tile; C = 200 (a partial chunk)
+# with Cin = 40 (a half-empty tail chunk) and 256, both 8x16; C = 416,
+# the 8x8 tile; C = 20 and Cin = 12 (plain-load staging, element-wise
+# stores); C = 33, 193 and 257, the first width of each tile after the
+# first.
 PAIR_SHAPES = [(2, 13, 19, 5, 24), (1, 17, 9, 40, 48), (1, 8, 16, 16, 80),
-               (2, 8, 8, 160, 32)]
+               (2, 8, 8, 160, 32), (1, 21, 35, 8, 72), (2, 19, 17, 24, 136),
+               (1, 18, 20, 16, 192), (1, 12, 20, 40, 200),
+               (1, 13, 37, 16, 256), (1, 10, 11, 8, 416),
+               (1, 11, 10, 12, 20), (1, 9, 17, 16, 33), (1, 10, 19, 8, 193),
+               (1, 9, 18, 16, 257)]
 
 
-@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
-@pytest.mark.parametrize("shape", PAIR_SHAPES,
-                         ids=["-".join(map(str, s)) for s in PAIR_SHAPES])
-def test_conv_pair_kernel_matches_plain(cuda, shape, dtype):
+def _pair_close(cuda, shape, dtype, seed):
     b, h, w, cin, c = shape
-    gen = torch.Generator(device=cuda).manual_seed(2)
+    gen = torch.Generator(device=cuda).manual_seed(seed)
     x = torch.randn(b, h, w, cin, generator=gen, device=cuda).to(dtype)
     first = _conv_params(gen, cuda, dtype, cin, c)
     second = _conv_params(gen, cuda, dtype, c, c)
@@ -103,6 +121,20 @@ def test_conv_pair_kernel_matches_plain(cuda, shape, dtype):
     mid = conv3x3_bn_relu_plain(x, *first).float()
     _close(out, conv3x3_bn_relu_plain(mid, *[t.float() for t in second]),
            dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", PAIR_SHAPES,
+                         ids=["-".join(map(str, s)) for s in PAIR_SHAPES])
+def test_conv_pair_kernel_matches_plain(cuda, shape, dtype):
+    _pair_close(cuda, shape, dtype, seed=2)
+
+
+def test_conv_pair_bf16_at_the_widest_width_it_takes(cuda):
+    """C = 928, the widest bf16 pair the kernel took before its
+    tensor-core redesign, on the 8x8 tile (f32 refuses it)."""
+    assert smem_bytes(928, torch.bfloat16) <= SMEM_LIMIT
+    _pair_close(cuda, (1, 9, 10, 16, 928), torch.bfloat16, seed=4)
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
