@@ -9,19 +9,26 @@ it, or when any phase fails:
 1. device: prints ``nvidia-smi --query-gpu=name,power.limit``;
 2. build: compiles ``segtpu_torch/csrc/*.cu`` for sm_90a into
    ``build/segtpu_torch/`` (one nvcc per source, started together),
-   prints each entry function's registers and spills, and fails if a
-   bf16 tensor-core instantiation of the conv or the pair spills;
+   prints each entry function's registers and spills, and fails unless
+   every source has a bf16 tensor-core instantiation and none of them
+   spills or has its warpgroup serialised around ``wgmma``;
 3. kernels: each kernel against its plain PyTorch version, in f32 and
    bf16, with kernel, plain and library times from CUDA events, the
    least time the card could take (bound), the achieved TFLOP/s of the
    function's operations and the bound's share of the kernel's time:
    the gate and the upsample at every shape the flagship forward (B=16,
-   512²) gives them, the conv3×3+BN+ReLU and the fused decoder pair at
-   the flagship's four decoder blocks (B=16);
+   512²) gives them (the gate also against the model's own unfused gate,
+   ``composition_ms``), the upsample also at the two levels the forward
+   does not fuse (``"serving": false``, out of the sums), the
+   conv3×3+BN+ReLU and the fused decoder pair at the flagship's four
+   decoder blocks (B=16);
 4. serving, attention model: the flagship resnet34 attention U-Net in bf16
    answers 3 ``predict_proba`` requests of 16 images of 512², through the
    attention-gate kernel (4 launches per forward), held against the same
-   weights run without kernels in f32;
+   weights run without kernels in f32; the forward with the kernels and
+   without, alternated; a profiled forward (device busy share, the port
+   kernels' share, the top five kernels); and the host time of the four
+   gates' BatchNorm folds, fresh and cached;
 5. serving, no-attention model: the same, through the upsample+concat
    kernel (2 launches per forward at B=16);
 6. benches: ``segtpu_torch.tools.kernel_bench`` and ``fused_block_bench``
@@ -41,6 +48,7 @@ from __future__ import annotations
 import copy
 import json
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -56,6 +64,9 @@ GATE_SHAPES = ((256, 256, 128, 32), (128, 128, 64, 64), (64, 64, 32, 128),
 # Fused upsample levels of one flagship forward at B=16 (levels 3 and 2):
 # (Cin, Co, Cs, H=W of x).
 UPSAMPLE_SHAPES = ((256, 128, 128, 32), (128, 64, 64, 64))
+# The levels it does not fuse at B=16 (4 and 1), timed for the routing
+# thresholds (``fuse_min_cin``, ``fuse_min_work``) and kept out of the sums.
+UPSAMPLE_OFF_PATH = ((512, 256, 256, 16), (64, 32, 64, 128))
 # Decoder blocks of the flagship at B=16, 512², levels 4..1: (H=W, Cin,
 # Cout) of the pair, whose first conv is also the conv3x3 case.
 DECODER_SHAPES = ((32, 512, 256), (64, 256, 128), (128, 128, 64),
@@ -127,6 +138,20 @@ def time_ms(fn, iters: int = 20, flush=None) -> float:
     return total / iters
 
 
+def host_ms(fn, iters: int = 20) -> float:
+    """Mean host-clock time of ``fn()`` up to a synchronised device,
+    after 3 warm-up calls: for host-bound work (many tiny launches, or
+    none), which CUDA events between idle points do not see."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
 def bound(nbytes: float, ops: float, dtype) -> tuple:
     """(least time in ms, "bytes" or "operations"): the larger of the
     bytes over the memory rate and the operations over the type's peak."""
@@ -169,10 +194,10 @@ def _entry_label(line: str) -> str:
 
 def phase_build() -> None:
     """Compile every kernel; print each entry function's registers and
-    spills from ``-Xptxas -v``, and fail if a bf16 tensor-core
-    instantiation (the conv's or the pair's) spills, or if ptxas
-    serialised a warpgroup around its ``wgmma`` products (note C7519,
-    "warpgroup.arrive is injected")."""
+    spills from ``-Xptxas -v``, and fail unless each source has a bf16
+    tensor-core instantiation (``*_bf16_kernel``/``*_wgmma_kernel``) and
+    none of them spills, or if ptxas serialised a warpgroup around its
+    ``wgmma`` products (note C7519, "warpgroup.arrive is injected")."""
     from segtpu_torch.kernels import _build
     t0 = time.perf_counter()
     built = _build.build()
@@ -191,13 +216,14 @@ def phase_build() -> None:
                 print(f"    {entry}: {line.strip()}")
                 m = re.search(r"(\d+) bytes spill stores", line)
                 if m:
-                    spills[entry] = int(m.group(1))
-    tc = {k: v for k, v in spills.items()
-          if re.search(r"_(bf16|wgmma)_kernel<", k)}
-    if {"conv3x3_bn_relu", "conv_pair_bn_relu"} & built.keys():
+                    spills.setdefault(name, {})[entry] = int(m.group(1))
+    for name in built:
+        tc = {k: v for k, v in spills.get(name, {}).items()
+              if re.search(r"_(bf16|wgmma)_kernel<", k)}
         check(len(tc) > 0 and not any(tc.values()),
-              f"build: 0 spill bytes in the {len(tc)} bf16 tensor-core "
-              f"instantiations ({tc})")
+              f"build: {name}: 0 spill bytes in its {len(tc)} bf16 "
+              f"tensor-core instantiations ({tc})")
+    if built:
         check(serialised == 0, f"build: {serialised} wgmma serialisation "
               "notes (C7519)")
 
@@ -216,7 +242,18 @@ def _gate_case(shape, dtype, gen, device):
     es = torch.finfo(dtype).bits // 8
     nbytes = es * (m * (cg + 2 * cx) + (cg + cx + 1) * f) + 4 * (f + 1)
     ops = 2 * m * f * (cg + cx) + 3 * m * f + m * cx
-    return args, ref, nbytes, ops, None
+
+    # the model's own unfused gate (no single call computes the gate):
+    # 1x1 convs, BatchNorms, ReLU, sigmoid and product on the channels_last
+    # NCHW views of g and x, random weights
+    from segtpu_torch.models.attention import AttentionGate
+    gate = AttentionGate(cg, cx, f, device=device, dtype=dtype).eval()
+    gl, xl = args[0].permute(0, 3, 1, 2), args[1].permute(0, 3, 1, 2)
+
+    def composition():
+        with torch.inference_mode():
+            return gate(gl, xl, fused=False)
+    return args, ref, nbytes, ops, None, {"composition_ms": composition}
 
 
 def _upsample_case(shape, dtype, gen, device):
@@ -242,7 +279,7 @@ def _upsample_case(shape, dtype, gen, device):
 
     def library():
         return torch.cat([skl, F.conv_transpose2d(xl, wl, bl, stride=2)], 1)
-    return args, ref, nbytes, ops, library
+    return args, ref, nbytes, ops, library, {}
 
 
 def _conv_params(r, rand, dtype, cin, cout):
@@ -277,7 +314,7 @@ def _conv_case(shape, dtype, gen, device):
     nbytes = es * (m * cin + 9 * cin * cout + m * cout) + 4 * 2 * cout
     ops = 2 * m * 9 * cin * cout
     conv, xl = _folded_conv(*args[1:]), args[0].permute(0, 3, 1, 2)
-    return args, ref, nbytes, ops, lambda: conv(xl)
+    return args, ref, nbytes, ops, lambda: conv(xl), {}
 
 
 def _pair_case(shape, dtype, gen, device):
@@ -301,12 +338,13 @@ def _pair_case(shape, dtype, gen, device):
     ops = 2 * m * 9 * c * (cin + c)
     conv1, conv2 = _folded_conv(*first), _folded_conv(*second)
     xl = x.permute(0, 3, 1, 2)
-    return args, ref, nbytes, ops, lambda: conv2(conv1(xl))
+    return args, ref, nbytes, ops, lambda: conv2(conv1(xl)), {}
 
 
 def phase_kernels(device="cuda") -> dict:
     """Each kernel vs its plain version at the flagship shapes, f32 and
-    bf16. Returns {name: [per-shape records]} of the bf16 runs."""
+    bf16. Returns {name: [per-shape records]} of the bf16 runs; a record's
+    ``serving`` says whether the flagship forward runs that shape."""
     from segtpu_torch.kernels.attention_gate import (attention_gate,
                                                      attention_gate_plain)
     from segtpu_torch.kernels.fused_block import (conv_pair_bn_relu,
@@ -320,7 +358,8 @@ def phase_kernels(device="cuda") -> dict:
     table = (("attention_gate", attention_gate, attention_gate_plain,
               _gate_case, GATE_SHAPES),
              ("upsample2x_concat", upsample2x_concat,
-              upsample2x_concat_plain, _upsample_case, UPSAMPLE_SHAPES),
+              upsample2x_concat_plain, _upsample_case,
+              UPSAMPLE_SHAPES + UPSAMPLE_OFF_PATH),
              ("conv3x3_bn_relu", conv3x3_bn_relu, conv3x3_bn_relu_plain,
               _conv_case, DECODER_SHAPES),
              ("conv_pair_bn_relu", conv_pair_bn_relu,
@@ -330,8 +369,8 @@ def phase_kernels(device="cuda") -> dict:
         for dtype in (torch.float32, torch.bfloat16):
             tol_rel = TOL_F32 if dtype == torch.float32 else TOL_BF16
             for shape in shapes:
-                args, ref, nbytes, ops, library = case(shape, dtype, gen,
-                                                       device)
+                args, ref, nbytes, ops, library, extra = case(
+                    shape, dtype, gen, device)
                 out = kernel(*args)
                 torch.cuda.synchronize()
                 err = (out.float() - ref).abs().max().item()
@@ -345,7 +384,11 @@ def phase_kernels(device="cuda") -> dict:
                            plain_ms=time_ms(lambda: plain(*args),
                                             flush=flush),
                            library_ms=(time_ms(library, flush=flush)
-                                       if library else None))
+                                       if library else None),
+                           serving=not (name == "upsample2x_concat"
+                                        and shape in UPSAMPLE_OFF_PATH),
+                           **{k: time_ms(fn, flush=flush)
+                              for k, fn in extra.items()})
                 rec["bound_ms"], rec["bound_by"] = bound(nbytes, ops, dtype)
                 # achieved rate of the function's own operations, and the
                 # share of the least time the kernel reaches
@@ -354,7 +397,7 @@ def phase_kernels(device="cuda") -> dict:
                 print("  " + json.dumps(rec), flush=True)
                 if dtype == torch.bfloat16:
                     records[name].append(rec)
-                del args, ref, library
+                del args, ref, library, extra
     return records
 
 
@@ -392,10 +435,60 @@ def _device_batch(model, images, device):
             .contiguous(memory_format=torch.channels_last))
 
 
-def _forward_ms(model, images, device="cuda") -> float:
-    x = _device_batch(model, images, device)
+# Forward timing: turns of (with kernels, without), each 5 timed forwards;
+# the medians are reported, so a slow spell of the shared host or the card
+# falls on both.
+FORWARD_TURNS = 5
+# The port's kernels a serving forward can run, by the names the profiler
+# shows (the tensor-core and the CUDA-core kernel of each source).
+PORT_KERNELS = ("gate_bf16_kernel", "attention_gate_kernel",
+                "upsample_bf16_kernel", "upsample2x_concat_kernel")
+
+
+def _forward_ms(model, x, use_kernels) -> tuple:
+    """(median ms with kernels, median ms without, both lists) of the
+    forward on x, from FORWARD_TURNS alternated turns."""
+    on, off = [], []
     with torch.inference_mode():
-        return time_ms(lambda: model(x), iters=10)
+        for _ in range(FORWARD_TURNS):
+            for flag, times in ((True, on), (False, off)):
+                use_kernels(model, flag)
+                times.append(time_ms(lambda: model(x), iters=5))
+    return statistics.median(on), statistics.median(off), on, off
+
+
+def _device_profile(model, x, forwards: int = 3) -> dict:
+    """Under ``torch.profiler`` (CUDA activity), ``forwards`` forwards
+    back to back: the share of their event time in which the device ran
+    a kernel or copy, the port's kernels' ms per forward and share of
+    that busy time, and the five kernels with the most device time, ms
+    per forward."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with torch.inference_mode():
+        model(x)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            start.record()
+            for _ in range(forwards):
+                model(x)
+            end.record()
+            end.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / 1e3)
+    busy = sum(by_name.values())
+    port = sum(t for n, t in by_name.items()
+               if any(k in n for k in PORT_KERNELS))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return dict(profile_busy_share=busy / start.elapsed_time(end),
+                profile_port_kernels_ms=port / forwards,
+                profile_port_kernels_share=port / max(busy, 1e-9),
+                profile_top=[[n[:80], t / forwards] for n, t in top])
 
 
 def _logits(model, images, device="cuda") -> torch.Tensor:
@@ -442,10 +535,21 @@ def phase_serving(use_attention: bool, device="cuda", batch=BATCH,
           f"{requests} requests (want {per_forward} per forward)")
     check(all(n == 0 for k, n in counts.items() if k != kernel),
           f"{label}: no other kernel launched ({counts})")
-    fwd_on = _forward_ms(model, reqs[0], device)
     use_kernels(model, False)
     _, ips_off, _ = serve(model)
-    fwd_off = _forward_ms(model, reqs[0], device)
+    x = _device_batch(model, reqs[0], device)
+    fwd_on, fwd_off, fwd_on_all, fwd_off_all = _forward_ms(model, x,
+                                                           use_kernels)
+    use_kernels(model, True)
+    try:
+        profiled = _device_profile(model, x)
+    except Exception as exc:
+        profiled = {"profile_error": repr(exc)}
+    got = profiled.get("profile_port_kernels_ms",
+                       profiled.get("profile_error"))
+    check(isinstance(got, float) and got > 0,
+          f"{label}: the profiled forward shows {kernel}'s device time "
+          f"per forward ({got})")
 
     use_kernels(ref32, False)
     ok_shape = all(p.shape == (batch, size, size, 1) and np.isfinite(p).all()
@@ -468,14 +572,26 @@ def phase_serving(use_attention: bool, device="cuda", batch=BATCH,
     check(l32err <= TOL_MODEL_F32_REL * max(1.0, scale),
           f"{label}: f32-with-kernel logits vs f32 plain: max_abs_err "
           f"{l32err:.3g}")
+    folds = {}
+    if use_attention:
+        # the four gates' BatchNorm folds per forward: fresh (as every
+        # forward did before the cache) and cached
+        gates = [getattr(model, f"attention{lvl}") for lvl in (4, 3, 2, 1)]
+        with torch.inference_mode():
+            folds = dict(
+                fold_ms_fresh=host_ms(lambda: [gt.fold() for gt in gates]),
+                fold_ms_cached=host_ms(
+                    lambda: [gt.folded() for gt in gates]))
     res = dict(model=label, requests=requests, batch=batch, size=size,
                launches=counts[kernel], img_per_s_kernels=ips_on,
                img_per_s_plain=ips_off, forward_ms_kernels=fwd_on,
                forward_ms_plain=fwd_off,
                forward_img_per_s_kernels=batch / fwd_on * 1e3,
                forward_img_per_s_plain=batch / fwd_off * 1e3,
+               forward_ms_kernels_turns=fwd_on_all,
+               forward_ms_plain_turns=fwd_off_all,
                probs_max_abs_err=perr, logits_max_abs_err=lerr,
-               logits_max_abs=scale)
+               logits_max_abs=scale, **folds, **profiled)
     print("serving " + json.dumps(res), flush=True)
     return res
 
@@ -546,6 +662,7 @@ def main() -> int:
     # per kernel: the sums over its flagship shapes (bf16)
     kernels = []
     for name, recs in records.items():
+        recs = [r for r in recs if r["serving"]]
         total = lambda key: sum(r[key] for r in recs)
         lib = [r["library_ms"] for r in recs]
         kernels.append(dict(

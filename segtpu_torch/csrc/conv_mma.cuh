@@ -168,6 +168,36 @@ __device__ __forceinline__ void stage_weights(std::uint32_t dst,
   }
 }
 
+// Stage rows [r0, r0 + R) and columns [c0, c0 + 8·CH) of a row-major bf16
+// matrix whose rows are `ld` elements apart into dst as R rows of CH
+// swizzled 16-byte chunks (the layout stage_window and stage_weights
+// give, so ldmatrix and b_row_addr read it the same way). Rows at or past
+// `rows` and columns at or past `cols` are zero. `vec`: every row start
+// is 16-byte aligned (ld % 8 == 0, cols % 8 == 0, aligned base), so each
+// chunk is one cp.async; otherwise plain loads. The 1x1 products (the
+// upsample's GEMM, the attention gate's) stage both operands with it.
+template <int R, int CH, int NTHREADS>
+__device__ __forceinline__ void stage_rows(std::uint32_t dst,
+                                           const bf16_bits* src,
+                                           long long r0, long long rows,
+                                           long long ld, int c0, int cols,
+                                           bool vec) {
+  for (int e = threadIdx.x; e < R * CH; e += NTHREADS) {
+    const int r = e / CH, c = e % CH;
+    const int col = c0 + 8 * c;
+    const bool on = r0 + r < rows && col < cols;
+    const std::uint32_t d = dst + 16 * (r * CH + swizzle<CH>(r, c));
+    const bf16_bits* s = src + (r0 + r) * ld + col;
+    if (vec) {
+      cp_async16(d, on ? s : src, on);
+    } else {
+      std::uint32_t v[4] = {0u, 0u, 0u, 0u};
+      if (on) load8_tail(v, s, cols - col);
+      st_shared16(d, v);
+    }
+  }
+}
+
 // Shared address of this lane's ldmatrix row in a staged B chunk (rows of
 // BN/8 swizzled chunks): row k0 + lane % 16 of tap `tap`, at column chunk
 // `c0 + lane / 16`. One ldmatrix.x4.trans there gives the b0/b1 fragments

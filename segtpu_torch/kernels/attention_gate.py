@@ -10,7 +10,10 @@ BatchNorms are folded into (Ag, Ax, b_h, a_psi, b_psi) by the caller
 
 Replaces ``segtpu/kernels/attention_gate.py::attention_gate_fused``. The
 source note in the ``.cu`` file says what bounds the kernel on an H100
-and what its design does about it.
+and what its design does about it: in bf16 both products run on the
+tensor cores with x's rows kept in shared memory for the output, up to
+the width limit the note states; f32, and bf16 past it, run the
+CUDA-core kernel.
 """
 
 from __future__ import annotations

@@ -5,6 +5,8 @@
 BatchNorms into two matmul weight sets and biases and runs the whole gate
 as one kernel launch (``segtpu_torch.kernels.attention_gate``). Exact up to
 fp reassociation; the module tree and state_dict are the same either way.
+Without grad the fold is cached on the module and redone only when a
+tensor it reads changed.
 """
 
 from __future__ import annotations
@@ -41,8 +43,39 @@ class AttentionGate(nn.Module):
                                  nn.BatchNorm2d(f_int, **kw))
         self.psi = nn.Sequential(nn.Conv2d(f_int, 1, 1, **kw),
                                  nn.BatchNorm2d(1, **kw), nn.Sigmoid())
+        self._fold_key, self._folded = None, None
+
+        # (module, attribute) of every tensor ``fold`` reads, and each
+        # BatchNorm's ``num_batches_tracked``: a train-mode forward updates
+        # the running statistics without bumping their version counters,
+        # but adds 1 to that counter in place
+        self._fold_reads = [
+            (mod, name) for seq in (self.W_g, self.W_x, self.psi)
+            for mod, names in ((seq[0], ("weight", "bias")),
+                               (seq[1], ("weight", "bias", "running_mean",
+                                         "running_var",
+                                         "num_batches_tracked")))
+            for name in names]
 
     def folded(self):
+        """``fold()``, cached while autograd records nothing (``no_grad``,
+        ``inference_mode``): refolded only when one of the tensors it reads
+        was replaced (``load_state_dict`` onto new storage, ``.to()``) or
+        changed in place (``load_state_dict``, an optimizer step, a
+        train-mode forward's BatchNorm statistics), or the dtype or device
+        changed. With grad enabled every call folds afresh, so a fold made
+        under ``inference_mode`` never enters a graph that autograd
+        saves. A fold is a few dozen small tensor ops."""
+        if torch.is_grad_enabled():
+            return self.fold()
+        ins = [getattr(mod, name) for mod, name in self._fold_reads]
+        key = (ins[0].dtype, ins[0].device,
+               tuple((t._version, t.data_ptr()) for t in ins))
+        if key != self._fold_key:
+            self._folded, self._fold_key = self.fold(), key
+        return self._folded
+
+    def fold(self):
         """Kernel operands (ag (Cg,F), ax (Cx,F), bh (F,), apsi (F,),
         bpsi (1,)): ag/ax/apsi in the module's dtype, bh/bpsi in f32."""
         dt = self.W_g[0].weight.dtype

@@ -137,21 +137,102 @@ def test_conv_pair_bf16_at_the_widest_width_it_takes(cuda):
     _pair_close(cuda, (1, 9, 10, 16, 928), torch.bfloat16, seed=4)
 
 
+def _gate_close(cuda, shape, dtype, seed):
+    b, h, w, cg, cx, f = shape
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=gen, device=cuda)
+    args = [r(b, h, w, cg).to(dtype), r(b, h, w, cx).to(dtype),
+            (r(cg, f) / cg ** 0.5).to(dtype), (r(cx, f) / cx ** 0.5).to(dtype),
+            r(f) * 0.1, (r(f) / f ** 0.5).to(dtype),
+            torch.full((1,), 0.1, device=cuda)]
+    before = attention_gate.launches
+    out = attention_gate(*args)
+    assert attention_gate.launches == before + 1
+    _close(out, attention_gate_plain(*[t.float() for t in args]), dtype)
+
+
+# (B, H, W, Cg, Cx, F) at the edges of the bf16 tensor-core gate (64 pixel
+# rows per block, 32-channel ring chunks, passes of 32, 64 or 128 hidden
+# columns): M = 1, 15, 17, 65 and 68 pixels (a block barely used, or one
+# row into the next); Cg or Cx = 5 (rows not 16-byte aligned: plain-load
+# staging, element-wise stores), 24 (below one chunk) and 40 (a
+# half-empty tail chunk); F = 8 and 24 (a partial 32-column pass), 40 (a
+# partial 64-column pass), 136 (a full 128-column pass and an 8-column
+# one).
+GATE_EDGE_SHAPES = [(1, 1, 1, 24, 40, 8), (1, 3, 5, 5, 24, 24),
+                    (1, 1, 17, 40, 5, 136), (1, 5, 13, 24, 24, 136),
+                    (1, 4, 17, 5, 5, 8), (2, 7, 9, 40, 40, 40)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", GATE_EDGE_SHAPES,
+                         ids=["-".join(map(str, s)) for s in GATE_EDGE_SHAPES])
+def test_gate_kernel_at_tile_edges(cuda, shape, dtype):
+    _gate_close(cuda, shape, dtype, seed=5)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_gate_kernel_at_resnet50_widths(cuda, dtype):
+    """resnet50's widest gate, (Cg, Cx, F) = (1024, 1024, 512): x's rows
+    of 1024 channels beside the ring, four 128-column passes over F."""
+    _gate_close(cuda, (1, 3, 7, 1024, 1024, 512), dtype, seed=6)
+
+
+def test_gate_kernel_past_the_tensor_core_widths(cuda):
+    """A bf16 gate whose x rows do not fit beside the ring (Cx = 1600,
+    past the 1504 the ``.cu`` note gives) takes the CUDA-core kernel and
+    is still right."""
+    _gate_close(cuda, (1, 2, 5, 64, 1600, 128), torch.bfloat16, seed=7)
+
+
+def _upsample_close(cuda, shape, dtype, seed):
+    b, h, w, cin, co, cs = shape
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=gen, device=cuda)
+    args = [r(b, h, w, cin).to(dtype),
+            (r(cin, 2, 2, co) / cin ** 0.5).to(dtype), r(co) * 0.1,
+            r(b, 2 * h, 2 * w, cs).to(dtype)]
+    before = upsample2x_concat.launches
+    out = upsample2x_concat(*args)
+    assert upsample2x_concat.launches == before + 1
+    ref = upsample2x_concat_plain(*[t.float() for t in args])
+    _close(out, ref, dtype)
+    # the skip is copied bit for bit
+    assert torch.equal(out[..., :cs], args[3])
+
+
+# (B, H, W, Cin, Co, Cs) at the edges of the bf16 tensor-core upsample (64
+# input pixels of the flat M and 256 of the 4·Co columns per block,
+# 32-channel ring chunks): W = 1, 3 and 33 (blocks that span image rows);
+# Cin = 20 (plain-load staging of x, a partial chunk); Co = 12 (4·Co = 48,
+# runs that cross taps: element-wise stores), 72 and 136 (two and three
+# column blocks, the last partial); Cs = 7 (element-wise skip copy) and 64.
+UPSAMPLE_EDGE_SHAPES = [(1, 2, 1, 20, 12, 7), (2, 3, 3, 20, 72, 64),
+                        (1, 2, 33, 20, 136, 7), (1, 3, 33, 24, 136, 64),
+                        (1, 5, 3, 16, 12, 64), (3, 3, 33, 20, 72, 7)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", UPSAMPLE_EDGE_SHAPES,
+                         ids=["-".join(map(str, s))
+                              for s in UPSAMPLE_EDGE_SHAPES])
+def test_upsample_kernel_at_tile_edges(cuda, shape, dtype):
+    _upsample_close(cuda, shape, dtype, seed=8)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_upsample_kernel_at_resnet50_widths(cuda, dtype):
+    """resnet50's level-4 upconv, Cin 2048 -> Co 1024 beside a skip of
+    1024: 64 ring chunks over Cin, 16 column blocks."""
+    _upsample_close(cuda, (1, 2, 3, 2048, 1024, 1024), dtype, seed=9)
+
+
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
 def test_gate_and_upsample_at_ragged_shapes(cuda, dtype):
-    gen = torch.Generator(device=cuda).manual_seed(3)
-    r = lambda *s: torch.randn(*s, generator=gen, device=cuda)
-    g, x = r(1, 3, 5, 8).to(dtype), r(1, 3, 5, 12).to(dtype)
-    gate = [g, x, (r(8, 8) / 3).to(dtype), (r(12, 8) / 3).to(dtype),
-            r(8) * 0.1, (r(8) / 3).to(dtype), torch.full((1,), 0.1,
-                                                         device=cuda)]
-    _close(attention_gate(*gate),
-           attention_gate_plain(*[t.float() for t in gate]), dtype)
-    # Cs != Co and Co not a multiple of the 64-column tile
-    ups = [r(2, 3, 5, 20).to(dtype), (r(20, 2, 2, 12) / 5).to(dtype),
-           r(12) * 0.1, r(2, 6, 10, 7).to(dtype)]
-    _close(upsample2x_concat(*ups),
-           upsample2x_concat_plain(*[t.float() for t in ups]), dtype)
+    # M = 15 pixels, Cg 8, Cx 12, F 8; then Cs != Co and 4·Co = 48, not a
+    # multiple of the f32 kernel's 64-column tile
+    _gate_close(cuda, (1, 3, 5, 8, 12, 8), dtype, seed=3)
+    _upsample_close(cuda, (2, 3, 5, 20, 12, 7), dtype, seed=3)
 
 
 def test_cuda_wrappers_refuse_before_launching(cuda):

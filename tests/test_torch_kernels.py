@@ -83,6 +83,48 @@ def test_upsample_concat_plain_matches_pallas(rng, shape):
     np.testing.assert_allclose(got, np.asarray(ref_xla), atol=1e-4)
 
 
+# The gate's plain version against the Pallas kernel at real channel
+# widths, (B, H, W, Cg, Cx, F): the flagship's widest gate (level 4) and
+# its level 1, and resnet50's widest (its level 4, segtpu/models/unet.py).
+# Level 1 packs P = 4 pixels per row, so it takes 32 pixels (8 rows, the
+# Pallas kernel's smallest block) to run the Pallas path, not its jnp
+# fallback.
+@pytest.mark.parametrize("shape", [(1, 4, 4, 256, 256, 128),
+                                   (1, 4, 8, 32, 64, 32),
+                                   (1, 4, 4, 1024, 1024, 512)],
+                         ids=["flagship-level4", "flagship-level1",
+                              "resnet50-level4"])
+def test_attention_gate_plain_matches_pallas_at_real_widths(rng, shape):
+    args = _gate_inputs(rng, *shape)
+    ref = attention_gate_fused(*[jnp.asarray(a) for a in args[:-1]],
+                               jnp.float32(args[-1][0]))
+    got = attention_gate(*[_t(a) for a in args])
+    # atol 1e-5, as above: weights scaled by 1/√C keep h O(1) at any width
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)
+
+
+# The upsample's plain version against the Pallas kernel (interpret mode)
+# at a real decoder level, (B, H, W, Cin, Co, Cs): the flagship's level 3
+# and resnet50's level-4 upconv (2048 → 1024 beside a 1024-channel skip).
+@pytest.mark.parametrize("shape", [(1, 2, 2, 256, 128, 128),
+                                   (1, 2, 2, 2048, 1024, 1024)],
+                         ids=["flagship-level3", "resnet50-level4"])
+def test_upsample_concat_plain_matches_pallas_at_real_widths(rng, shape):
+    b, h, w, cin, co, cs = shape
+    x = rng.normal(size=(b, h, w, cin)).astype(np.float32)
+    k = (rng.normal(size=(2, 2, cin, co)) / np.sqrt(cin)).astype(np.float32)
+    bias = rng.normal(size=(co,)).astype(np.float32)
+    skip = rng.normal(size=(b, 2 * h, 2 * w, cs)).astype(np.float32)
+    jx = [jnp.asarray(a) for a in (x, k, bias, skip)]
+    with pltpu.force_tpu_interpret_mode():
+        ref = upsample2x_concat_pallas(*jx, tile=2)
+    got = upsample2x_concat(_t(x), _wv(k), _t(bias), _t(skip)).numpy()
+    assert got.shape == (b, 2 * h, 2 * w, cs + co)
+    # atol 1e-4, as above; k scaled by 1/√Cin keeps the sums O(1)
+    np.testing.assert_allclose(got, np.asarray(ref), atol=1e-4)
+    np.testing.assert_array_equal(got[..., :cs], skip)
+
+
 def test_upsample_tap_mapping():
     """Pins the tap map: output pixel (2h+dy, 2w+dx) gets x[h,w] times the
     torch weight W_t[:, :, dy, dx] = flax k[1-dy, 1-dx]."""

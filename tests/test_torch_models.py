@@ -128,6 +128,115 @@ def test_attention_gate_module_matches_jax(rng, fused):
     np.testing.assert_allclose(_nhwc(got), np.asarray(ref), atol=1e-5)
 
 
+def _random_gate(seed, f_g=16, f_l=12, f_int=8):
+    """An eval-mode gate with non-trivial BatchNorm affines and running
+    statistics, from a seeded torch generator."""
+    torch.manual_seed(seed)
+    gate = AttentionGate(f_g, f_l, f_int, device="cpu")
+    with torch.no_grad():
+        for bn in (gate.W_g[1], gate.W_x[1], gate.psi[1]):
+            bn.weight.uniform_(0.8, 1.2)
+            bn.bias.normal_(0.0, 0.1)
+            bn.running_mean.normal_(0.0, 0.1)
+            bn.running_var.uniform_(0.5, 1.5)
+    return gate.eval()
+
+
+def _gate_io(rng):
+    return (_nchw(rng.normal(size=(2, 8, 8, 16)).astype(np.float32)),
+            _nchw(rng.normal(size=(2, 8, 8, 12)).astype(np.float32)))
+
+
+def _fused_matches_unfused(gate, g, x):
+    with torch.no_grad():
+        fused = gate(g, x, fused=True)
+        unfused = gate(g, x, fused=False)
+    # atol 1e-5: the gate's bar against the JAX module above
+    np.testing.assert_allclose(_nhwc(fused), _nhwc(unfused), atol=1e-5)
+
+
+def test_gate_fold_is_cached_and_equals_a_fresh_fold():
+    gate = _random_gate(0)
+    with torch.no_grad():
+        cached = gate.folded()
+        assert gate.folded() is cached      # the second forward's fold
+        fresh = gate.fold()
+    for a, b in zip(cached, fresh):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    gate.to(torch.bfloat16)                 # new storage and dtype
+    with torch.no_grad():
+        ag, ax, bh, apsi, bpsi = gate.folded()
+    assert (ag.dtype, ax.dtype, apsi.dtype) == (torch.bfloat16,) * 3
+    assert (bh.dtype, bpsi.dtype) == (torch.float32,) * 2
+
+
+def _fused_input_grad(gate, g, x):
+    """Gradient of the eval-mode fused gate's output sum w.r.t. x, with
+    grad enabled (a saliency map)."""
+    x = x.clone().requires_grad_(True)
+    gate(g, x, fused=True).sum().backward()
+    return x.grad
+
+
+def test_gate_fold_with_grad_backpropagates_every_forward(rng):
+    """With grad enabled each fused forward folds afresh (the fold is
+    detached; the graph runs through g and x): two forwards and
+    backwards in a row both run, and agree with the unfused gate's input
+    gradient."""
+    gate = _random_gate(0)
+    g, x = _gate_io(rng)
+    first = _fused_input_grad(gate, g, x)
+    second = _fused_input_grad(gate, g, x)
+    x_ref = x.clone().requires_grad_(True)
+    gate(g, x_ref, fused=False).sum().backward()
+    for got in (first, second):
+        # atol 1e-5: the gate's bar against the JAX module above
+        np.testing.assert_allclose(got.numpy(), x_ref.grad.numpy(),
+                                   atol=1e-5)
+
+
+def test_gate_fold_cached_under_inference_mode_then_used_with_grad(rng):
+    """A fold cached under ``inference_mode`` (as ``predict_proba``
+    fills it) is not handed to a later forward that records grad."""
+    gate = _random_gate(0)
+    g, x = _gate_io(rng)
+    with torch.inference_mode():
+        gate(g, x, fused=True)
+    assert gate._folded is not None
+    got = _fused_input_grad(gate, g, x)
+    x_ref = x.clone().requires_grad_(True)
+    gate(g, x_ref, fused=False).sum().backward()
+    np.testing.assert_allclose(got.numpy(), x_ref.grad.numpy(), atol=1e-5)
+    _fused_matches_unfused(gate, g, x)   # and the cache still serves no_grad
+
+
+def test_gate_fold_cache_follows_load_state_dict(rng):
+    """``load_state_dict`` copies into the same storage: the fold cached
+    before it must not survive it."""
+    gate, other = _random_gate(0), _random_gate(1)
+    g, x = _gate_io(rng)
+    _fused_matches_unfused(gate, g, x)
+    before = gate.folded()
+    gate.load_state_dict(other.state_dict())
+    assert gate.folded() is not before
+    _fused_matches_unfused(gate, g, x)
+
+
+def test_gate_fold_cache_follows_train_mode_batchnorm_update(rng):
+    """A train-mode forward moves the BatchNorm running statistics in
+    place; the next fused forward folds them anew."""
+    gate = _random_gate(0)
+    g, x = _gate_io(rng)
+    _fused_matches_unfused(gate, g, x)
+    mean = gate.W_g[1].running_mean.clone()
+    gate.train()
+    with torch.no_grad():
+        gate(g * 2.0 + 1.0, x, fused=True)   # training: the unfused path
+    gate.eval()
+    assert not torch.equal(gate.W_g[1].running_mean, mean)
+    _fused_matches_unfused(gate, g, x)
+
+
 def test_channel_attention_matches_jax(rng):
     x = rng.normal(size=(2, 8, 8, 32)).astype(np.float32)
     ca = JaxChannelAttention()
