@@ -36,7 +36,21 @@ it, or when any phase fails:
    that run the conv and pair kernels; each wrapper must have launched
    exactly as often as the bench called it, and each case must agree with
    its plain version;
-7. one JSON line ``{"kernels": [...]}``, then the card line, then the
+7. training: one train step of ``resnet_tiny`` at 64² on the card, in
+   f32 (TF32 off) and in float64, against the same step of the port on
+   the CPU in float64;
+   then ``segtpu_torch.api.Segmenter`` fits the flagship (resnet34,
+   attention, 512², bf16 compute with f32 parameters, B=8) for 2 epochs
+   on 20 synthetic images and predicts 16, through the gate kernel (4
+   launches per validation and ``predict`` forward); the trained model
+   with the gate kernel against the same model without it, after fit and
+   after an optimizer step alone (which must bump every gate parameter's
+   version and refold the gates: the BatchNorm-fold cache on the CUDA
+   optimizer's path); 30 timed steps on one batch and 3 profiled ones; a
+   no-attention ``Segmenter`` for 1 epoch, whose validation pass runs the
+   upsample kernel, then with the upsample kernel against without it; a
+   ``train {...}`` line;
+8. one JSON line ``{"kernels": [...]}``, then the card line, then the
    result line ``{"ok": true, "device": {...}}``.
 
 The weights are random, made from a fixed seed; the BatchNorm running
@@ -107,6 +121,34 @@ TOL_BENCH_BF16 = 2.0 ** -6
 TOL_LOGITS_REL, TOL_PROBS = 1e-1, 5e-2
 # f32 model with kernels vs without: reassociation only.
 TOL_MODEL_F32_REL = 1e-4
+# Training, check (a): one train step of resnet_tiny at 64² on the card
+# in f32 (TF32 off) and in float64, each against the same step of the
+# port on the CPU in float64, same weights and batch. Gradients are held
+# per tensor, scaled by the tensor's largest gradient floored at 1e-2 of
+# the model's largest (a tensor whose gradients all sit far below the
+# rest, such as a BatchNorm shift feeding another BatchNorm, carries only
+# rounding). f32: the loss and the running variances within 1e-4 of
+# themselves (the port's f32 step on the CPU: 2e-7 and 5e-7), the
+# gradients within 5e-2: at the bottom of the U-Net a BatchNorm normalises
+# 2·4·4 pixels and its backward sums with heavy cancellation; the port's
+# f32 step on the CPU sits 2.1e-2 from float64 there at one seed, cuDNN's
+# 2.2e-2 at this one (decoder4.3.weight). float64: the same mathematics,
+# within 1e-9 (the loss 1e-6: the metric vector is f32).
+TOL_STEP_F32 = dict(loss=1e-4, running_var=1e-4, grad=5e-2)
+TOL_STEP_F64 = dict(loss=1e-6, running_var=1e-9, grad=1e-9)
+# Training, check (d): the trained bf16 model with the gate kernel
+# against itself without it: probabilities within §2's 0.05 bar, the
+# validation IoU within 0.01.
+TOL_TRAIN_IOU = 1e-2
+# The training run: the flagship at full width and depth, B=8 (the
+# smallest batch of the JAX package's tools/train_bench.py), 16 training
+# and 4 validation images of 512², 2 epochs; then 16 images predicted.
+TRAIN_CONFIG = {"img_size": (SIZE, SIZE), "batch_size": 8,
+                "dtype": "bfloat16", "loss_fn": "combo", "num_epochs": 2,
+                "seed": SEED, "verbose": False}
+TRAIN_IMAGES, VAL_IMAGES, PREDICT_IMAGES = 16, 4, 16
+# The step time: the median of this many steps on one resident batch.
+TIMED_STEPS = 30
 
 FAILURES: list = []
 
@@ -463,19 +505,25 @@ def _device_profile(model, x, forwards: int = 3) -> dict:
     a kernel or copy, the port's kernels' ms per forward and share of
     that busy time, and the five kernels with the most device time, ms
     per forward."""
+    with torch.inference_mode():
+        return _profile_calls(lambda: model(x), forwards)
+
+
+def _profile_calls(fn, calls: int) -> dict:
+    """``_device_profile``'s numbers for ``calls`` calls of ``fn``, after
+    one unprofiled call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with torch.inference_mode():
-        model(x)
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            start.record()
-            for _ in range(forwards):
-                model(x)
-            end.record()
-            end.synchronize()
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
     by_name = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -486,9 +534,10 @@ def _device_profile(model, x, forwards: int = 3) -> dict:
                if any(k in n for k in PORT_KERNELS))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     return dict(profile_busy_share=busy / start.elapsed_time(end),
-                profile_port_kernels_ms=port / forwards,
+                profile_busy_ms=busy / calls,
+                profile_port_kernels_ms=port / calls,
                 profile_port_kernels_share=port / max(busy, 1e-9),
-                profile_top=[[n[:80], t / forwards] for n, t in top])
+                profile_top=[[n[:80], t / calls] for n, t in top])
 
 
 def _logits(model, images, device="cuda") -> torch.Tensor:
@@ -627,6 +676,271 @@ def phase_benches(device="cuda") -> dict:
     return total
 
 
+def _blob_images(n, size, rng):
+    """n canonical uint8 images (blobs on a noisy background) and their
+    binary masks."""
+    yy, xx = np.mgrid[:size, :size]
+    masks = np.zeros((n, size, size), np.uint8)
+    for i in range(n):
+        for _ in range(rng.integers(3, 9)):
+            cy, cx = rng.integers(0, size, 2)
+            r = rng.uniform(size / 40, size / 10)
+            masks[i][(yy - cy) ** 2 + (xx - cx) ** 2 < r * r] = 1
+    imgs = rng.normal(60, 15, (n, size, size)) + 90.0 * masks
+    return imgs.clip(0, 255).astype(np.uint8), masks
+
+
+def _step_check(device, size=64) -> dict:
+    """Check (a): one train step of resnet_tiny on ``device`` in f32 and
+    in float64 against the same step on the CPU in float64, same weights
+    and batch."""
+    from segtpu_torch.train.engine import TrainState, get_engine
+    cfg = {"backbone": "resnet_tiny", "use_attention": True,
+           "loss_fn": "combo"}
+    ref_eng, eng = get_engine(cfg, device="cpu"), get_engine(cfg,
+                                                             device=device)
+    ref = ref_eng.init_state(torch.Generator().manual_seed(SEED), 1e-3, 1e-5)
+    init = ref.model.state_dict()
+    x = np.random.default_rng(SEED + 2).uniform(0, 1, (2, 1, size, size))
+    x = torch.from_numpy(x.astype(np.float32)).double().contiguous(
+        memory_format=torch.channels_last)            # f32 values
+    y = (x > 0.6).double()
+    ref.model.double()
+    ref.optimizer = ref_eng.make_optimizer(ref.model, 1e-3, 1e-5)
+    _, m_ref = ref_eng.train_step(ref, x, y)
+    want = {k: p.grad for k, p in ref.model.named_parameters()}
+    gmax = max(float(g.abs().max()) for g in want.values())
+    sd_ref = ref.model.state_dict()
+    res = {}
+    for dtype, tol in ((torch.float32, TOL_STEP_F32),
+                       (torch.float64, TOL_STEP_F64)):
+        model = eng.build_model()
+        model.load_state_dict(init)
+        model.to(dtype)
+        st = TrainState(model, eng.make_optimizer(model, 1e-3, 1e-5))
+        _, m = eng.train_step(st, x.to(device, dtype), y.to(device, dtype))
+        loss = abs(float(m["loss"]) - float(m_ref["loss"])) / abs(
+            float(m_ref["loss"]))
+        grad, worst = max(
+            (float((p.grad.double().cpu() - want[k]).abs().max())
+             / max(float(want[k].abs().max()), 1e-2 * gmax), k)
+            for k, p in model.named_parameters())
+        sd = model.state_dict()
+        var = max(float(((sd[k].double().cpu() - v).abs() / v).max())
+                  for k, v in sd_ref.items() if k.endswith("running_var"))
+        dt = str(dtype).removeprefix("torch.")
+        for name, err in (("loss", loss), ("running_var", var),
+                          ("grad", grad)):
+            check(err <= tol[name], f"train (a): {dt} step on {device} vs "
+                  f"the CPU's float64 step: {name} err {err:.3g} (tol "
+                  f"{tol[name]}" + (f"; worst {worst})" if name == "grad"
+                                    else ")"))
+        res.update({f"step_{dt}_loss_rel_err": loss,
+                    f"step_{dt}_grad_err": grad,
+                    f"step_{dt}_grad_worst": worst,
+                    f"step_{dt}_running_var_rel_err": var})
+    return res
+
+
+def _timed_epochs(seg) -> list:
+    """Wrap the engine's epochs in the host clock; returns the epoch
+    seconds, filled as it runs."""
+    eng, epochs = seg.engine, []
+    epoch = eng.run_train_and_eval_epoch
+
+    def timed_epoch(*a, **kw):
+        t0 = time.perf_counter()
+        out = epoch(*a, **kw)            # ends in a host fetch
+        epochs.append(time.perf_counter() - t0)
+        return out
+
+    eng.run_train_and_eval_epoch = timed_epoch
+    return epochs
+
+
+def _step_ms(engine, state, x, y, steps: int) -> list:
+    """CUDA-event ms of each of ``steps`` train steps on one resident
+    batch, enqueued back to back with no host sync between them, after
+    one untimed step: each span is the step's wall time as the device
+    sees it, host gaps included."""
+    engine.train_step(state, x, y)
+    torch.cuda.synchronize()
+    spans = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(steps)]
+    for start, end in spans:
+        start.record()
+        engine.train_step(state, x, y)
+        end.record()
+    torch.cuda.synchronize()
+    return [start.elapsed_time(end) for start, end in spans]
+
+
+def _kernel_vs_plain(seg, images, masks, use_kernel, kernel, label) -> dict:
+    """Check (d)/(e): ``seg``'s trained model with its kernel
+    (``use_kernel(model, True)``) and without, on the same validation
+    images: ``predict_proba`` within §2's 0.05 bar, the validation IoU
+    (``evaluate``) within TOL_TRAIN_IOU; the kernel must have launched in
+    the kernel's turn."""
+    from segtpu_torch.kernels import launch_counts, reset_launch_counts
+    model = seg.state.model
+    use_kernel(model, True)
+    reset_launch_counts()
+    p_on = seg.predict_proba(images)
+    iou_on = seg.evaluate(images, masks)["iou"]
+    launched = launch_counts()[kernel]
+    use_kernel(model, False)
+    p_off = seg.predict_proba(images)
+    iou_off = seg.evaluate(images, masks)["iou"]
+    use_kernel(model, True)
+    perr = float(np.abs(p_on - p_off).max())
+    check(launched > 0 and perr <= TOL_PROBS
+          and abs(iou_on - iou_off) <= TOL_TRAIN_IOU,
+          f"train {label}: {kernel} ({launched} launches) vs the unfused "
+          f"model: probs max_abs_err {perr:.3g} (tol {TOL_PROBS}), IoU "
+          f"{iou_on:.4f} vs {iou_off:.4f} (tol {TOL_TRAIN_IOU})")
+    return dict(launches=launched, probs_err=perr, iou=[iou_on, iou_off])
+
+
+def _optimizer_step_refolds(seg, device) -> dict:
+    """Check (d): the optimizer alone, with no forward, bumps the version
+    counter of every gate parameter (and no BatchNorm statistic), so the
+    next no-grad fold is new and equals a fresh fold."""
+    model, opt = seg.state.model, seg.state.optimizer
+    gates = [getattr(model, f"attention{lvl}") for lvl in (4, 3, 2, 1)]
+    dt = seg.engine.compute_dtype              # the validation pass's
+    with torch.inference_mode():                     # cache the folds
+        cached = [g.folded(dt) for g in gates]
+    params = [p for g in gates for p in g.parameters()]
+    stats = [b for g in gates for b in g.buffers()]
+    p_ver = [p._version for p in params]
+    s_ver = [b._version for b in stats]
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    for p in model.parameters():
+        p.grad = 1e-3 * torch.randn(p.shape, generator=gen, device=device)
+    opt.step()
+    opt.zero_grad(set_to_none=True)
+    bumped = all(p._version > v for p, v in zip(params, p_ver))
+    still = [b._version for b in stats] == s_ver
+    with torch.inference_mode():
+        new = [g.folded(dt) for g in gates]
+        fresh = [g.fold(dt) for g in gates]
+    refolded = all(n is not c for n, c in zip(new, cached))
+    equal = all(torch.equal(a, b) for n, f in zip(new, fresh)
+                for a, b in zip(n, f))
+    check(bumped and still and refolded and equal,
+          f"train (d): {type(opt).__name__}.step() alone (defaults "
+          f"{ {k: opt.defaults.get(k) for k in ('foreach', 'fused')} }): "
+          f"every gate parameter's version rose {bumped}, no gate "
+          f"BatchNorm statistic changed {still}, every gate refolded "
+          f"{refolded}, the new folds equal fresh ones {equal}")
+    return dict(opt_step_bumped_versions=bumped, opt_step_refolded=refolded)
+
+
+def phase_training(device="cuda", backbone="resnet34", size=SIZE) -> dict:
+    """The training path through ``segtpu_torch.api.Segmenter``: checks
+    (a)-(e) of the module docstring and the ``train`` line. Returns it."""
+    from segtpu_torch.api import Segmenter
+    from segtpu_torch.data.preprocess import normalize_canonical
+    from segtpu_torch.kernels import launch_counts, reset_launch_counts
+    res = _step_check(device)
+    rng = np.random.default_rng(SEED)
+    n = TRAIN_IMAGES + VAL_IMAGES
+    imgs, masks = _blob_images(n, size, rng)
+    tr, va = slice(0, TRAIN_IMAGES), slice(TRAIN_IMAGES, n)
+    test_imgs, _ = _blob_images(PREDICT_IMAGES, size, rng)
+    config = dict(TRAIN_CONFIG, img_size=(size, size))
+
+    seg = Segmenter(backbone=backbone, use_attention=True, config=config,
+                    device=device)
+    epochs = _timed_epochs(seg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    seg.fit(imgs[tr], masks[tr], imgs[va], masks[va])
+    fit_counts = launch_counts()
+    seg.predict_proba(test_imgs)
+    counts = launch_counts()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [m["loss"] for m in seg.history["train_metrics"]
+              + seg.history["val_metrics"]]
+    check(all(np.isfinite(losses)), f"train (b): bf16 losses finite "
+          f"({losses})")
+    val_forwards = config["num_epochs"] * -(-VAL_IMAGES
+                                            // config["batch_size"])
+    gate = counts["attention_gate"]
+    check(fit_counts["attention_gate"] == 4 * val_forwards
+          and gate == 4 * (val_forwards + 1),
+          f"train (c): attention_gate launched {fit_counts['attention_gate']}"
+          f" times in fit's {val_forwards} validation forwards, {gate} with "
+          "the predict forward (want 4 per forward)")
+    check(all(v == 0 for k, v in counts.items() if k != "attention_gate"),
+          f"train (c): no other kernel launched ({counts})")
+
+    # (d): the trained model with the gate kernel and without it, after
+    # fit and after an optimizer step alone, which must refold the gates
+    def gate_on(model, on):
+        model.fuse_gate = on
+
+    after_fit = _kernel_vs_plain(seg, imgs[va], masks[va], gate_on,
+                                 "attention_gate", "(d) after fit")
+    res.update(_optimizer_step_refolds(seg, device))
+    after_step = _kernel_vs_plain(seg, imgs[va], masks[va], gate_on,
+                                  "attention_gate",
+                                  "(d) after an optimizer step alone")
+
+    # the step time: TIMED_STEPS steps on one resident batch; the device's
+    # busy share is the profiled device time per step over that time
+    x = torch.from_numpy(imgs[tr][:config["batch_size"]]).to(device)
+    xs = normalize_canonical(x).contiguous(memory_format=torch.channels_last)
+    ys = torch.from_numpy(masks[tr][:config["batch_size"]]).to(device)
+    ys = ys[:, None].float()
+    step_ms = _step_ms(seg.engine, seg.state, xs, ys, TIMED_STEPS)
+    step_med = statistics.median(step_ms)
+    try:
+        profiled = _profile_calls(
+            lambda: seg.engine.train_step(seg.state, xs, ys), 3)
+    except Exception as exc:
+        profiled = {"profile_error": repr(exc)}
+    check("profile_busy_share" in profiled, f"train: profiled train step "
+          f"({profiled.get('profile_error', 'ok')})")
+
+    # (e): no-attention, 1 epoch: the validation pass runs the upsample,
+    # and the trained model agrees with itself run without it
+    plain_seg = Segmenter(backbone=backbone, use_attention=False,
+                          config=dict(config, num_epochs=1), device=device)
+    reset_launch_counts()
+    plain_seg.fit(imgs[tr], masks[tr], imgs[va], masks[va])
+    ups = launch_counts()["upsample2x_concat"]
+    check(ups > 0, f"train (e): no-attention validation launched "
+          f"upsample2x_concat {ups} times")
+
+    def fuse_on(model, on):
+        model.fuse = "kernel" if on else "none"
+
+    upsample = _kernel_vs_plain(plain_seg, imgs[va], masks[va], fuse_on,
+                                "upsample2x_concat", "(e) after fit")
+
+    quart = statistics.quantiles(step_ms, n=10)
+    res.update(
+        model="attention", backbone=backbone, size=size,
+        batch=config["batch_size"], epochs=config["num_epochs"],
+        train_images=TRAIN_IMAGES, val_images=VAL_IMAGES,
+        step_ms=step_med, step_ms_p10=quart[0], step_ms_p90=quart[-1],
+        step_ms_min=min(step_ms), step_ms_max=max(step_ms),
+        timed_steps=len(step_ms),
+        img_per_s=config["batch_size"] / step_med * 1e3,
+        max_memory_gib=peak, host_s_per_epoch=epochs,
+        launches=counts, upsample_launches_no_attention=ups,
+        losses=losses, val_iou=seg.history["val_metrics"][-1]["iou"],
+        gate_after_fit=after_fit, gate_after_opt_step=after_step,
+        upsample_after_fit=upsample, **profiled)
+    if "profile_busy_ms" in profiled:
+        res["busy_share_unprofiled"] = profiled["profile_busy_ms"] / step_med
+    print("train " + json.dumps(res), flush=True)
+    return res
+
+
 KERNEL_META = {
     "attention_gate": dict(
         source="segtpu_torch/csrc/attention_gate.cu",
@@ -652,10 +966,14 @@ def main() -> int:
     served = {"attention_gate": phase_serving(True),
               "upsample2x_concat": phase_serving(False)}
     benched = phase_benches()
-    # each kernel's launches on its own main path: the serving model that
-    # runs it, or the bench entry points for the conv and the pair
-    launches = {"attention_gate": served["attention_gate"]["launches"],
-                "upsample2x_concat": served["upsample2x_concat"]["launches"],
+    trained = phase_training()
+    # each kernel's launches on its own main paths: the serving model and
+    # the training run that run it, or the bench entry points for the conv
+    # and the pair
+    launches = {"attention_gate": served["attention_gate"]["launches"]
+                + trained["launches"]["attention_gate"],
+                "upsample2x_concat": served["upsample2x_concat"]["launches"]
+                + trained["upsample_launches_no_attention"],
                 "conv3x3_bn_relu": benched["conv3x3_bn_relu"],
                 "conv_pair_bn_relu": benched["conv_pair_bn_relu"]}
 

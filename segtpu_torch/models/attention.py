@@ -6,7 +6,10 @@ BatchNorms into two matmul weight sets and biases and runs the whole gate
 as one kernel launch (``segtpu_torch.kernels.attention_gate``). Exact up to
 fp reassociation; the module tree and state_dict are the same either way.
 Without grad the fold is cached on the module and redone only when a
-tensor it reads changed.
+tensor it reads changed. The kernel's weight operands take the
+activations' dtype, so that under ``torch.autocast`` (f32 parameters,
+bf16 activations, as flax's ``param_dtype``/``dtype``) the gate still runs
+as the kernel.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import torch.nn.functional as F
 from segtpu_torch import resolve_device
 from segtpu_torch.kernels.attention_gate import attention_gate
 from segtpu_torch.kernels.fused_conv import fold_bn
+from segtpu_torch.models.backbones import BatchNorm2d
 
 
 def _fold(seq: nn.Sequential):
@@ -38,11 +42,11 @@ class AttentionGate(nn.Module):
         super().__init__()
         kw = dict(device=resolve_device(device), dtype=dtype)
         self.W_g = nn.Sequential(nn.Conv2d(f_g, f_int, 1, **kw),
-                                 nn.BatchNorm2d(f_int, **kw))
+                                 BatchNorm2d(f_int, **kw))
         self.W_x = nn.Sequential(nn.Conv2d(f_l, f_int, 1, **kw),
-                                 nn.BatchNorm2d(f_int, **kw))
+                                 BatchNorm2d(f_int, **kw))
         self.psi = nn.Sequential(nn.Conv2d(f_int, 1, 1, **kw),
-                                 nn.BatchNorm2d(1, **kw), nn.Sigmoid())
+                                 BatchNorm2d(1, **kw), nn.Sigmoid())
         self._fold_key, self._folded = None, None
 
         # (module, attribute) of every tensor ``fold`` reads, and each
@@ -57,28 +61,29 @@ class AttentionGate(nn.Module):
                                          "num_batches_tracked")))
             for name in names]
 
-    def folded(self):
-        """``fold()``, cached while autograd records nothing (``no_grad``,
+    def folded(self, dtype=None):
+        """``fold(dtype)``, cached while autograd records nothing (``no_grad``,
         ``inference_mode``): refolded only when one of the tensors it reads
         was replaced (``load_state_dict`` onto new storage, ``.to()``) or
         changed in place (``load_state_dict``, an optimizer step, a
-        train-mode forward's BatchNorm statistics), or the dtype or device
-        changed. With grad enabled every call folds afresh, so a fold made
+        train-mode forward's BatchNorm statistics), or the parameters'
+        dtype or device or the operands' ``dtype`` changed. With grad enabled every call folds afresh, so a fold made
         under ``inference_mode`` never enters a graph that autograd
         saves. A fold is a few dozen small tensor ops."""
         if torch.is_grad_enabled():
-            return self.fold()
+            return self.fold(dtype)
         ins = [getattr(mod, name) for mod, name in self._fold_reads]
-        key = (ins[0].dtype, ins[0].device,
+        key = (dtype, ins[0].dtype, ins[0].device,
                tuple((t._version, t.data_ptr()) for t in ins))
         if key != self._fold_key:
-            self._folded, self._fold_key = self.fold(), key
+            self._folded, self._fold_key = self.fold(dtype), key
         return self._folded
 
-    def fold(self):
+    def fold(self, dtype=None):
         """Kernel operands (ag (Cg,F), ax (Cx,F), bh (F,), apsi (F,),
-        bpsi (1,)): ag/ax/apsi in the module's dtype, bh/bpsi in f32."""
-        dt = self.W_g[0].weight.dtype
+        bpsi (1,)): ag/ax/apsi in ``dtype`` (default: the module's), bh/bpsi
+        in f32."""
+        dt = dtype or self.W_g[0].weight.dtype
         wg, bg = _fold(self.W_g)
         wx, bx = _fold(self.W_x)
         wp, bp = _fold(self.psi)
@@ -90,7 +95,7 @@ class AttentionGate(nn.Module):
     def forward(self, g, x, fused: bool = False):
         if fused and not self.training:
             out = attention_gate(g.permute(0, 2, 3, 1), x.permute(0, 2, 3, 1),
-                                 *self.folded())
+                                 *self.folded(x.dtype))
             return out.permute(0, 3, 1, 2)
         return x * self.psi(F.relu(self.W_g(g) + self.W_x(x)))
 

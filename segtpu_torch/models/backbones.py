@@ -9,11 +9,15 @@ Module names follow the reference/torchvision naming (``input_conv``,
 ``bn1``, ``enc1.0.conv1``, ``enc2.0.downsample.0``, …) so a reference
 checkpoint loads with ``strict=True``.
 
+Every BatchNorm is ``BatchNorm2d`` below: ``nn.BatchNorm2d`` with flax's
+train-mode update of the running variance.
+
 Returns the 5 skip features (x1..x5) at strides /2, /4, /8, /16, /32.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import List
 
 import torch
@@ -30,6 +34,64 @@ BACKBONE_CHANNELS = {
 RESNET_BLOCKS = {"resnet34": (3, 4, 6, 3), "resnet_tiny": (1, 1, 1, 1)}
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` (same ``state_dict``, ``momentum=0.1``,
+    ``eps=1e-5``) whose train-mode forward moves ``running_var`` by the
+    *biased* batch variance, as flax's ``BatchNorm`` does
+    (``ra_var = m·ra_var + (1−m)·var``); torch's own update uses the
+    unbiased one, n/(n−1) larger, which at a 1×1 level with B=2 doubles
+    it. The batch is normalised by the biased variance either way.
+    ``num_batches_tracked`` counts the updates (the attention gate's fold
+    cache reads it). With ``update_stats`` False a train-mode forward
+    leaves the running statistics alone (``frozen_running_stats``)."""
+
+    def __init__(self, num_features: int, **kw):
+        super().__init__(num_features, **kw)
+        self.update_stats = True
+        # scratch for the batch's mean and unbiased variance (not state):
+        # torch's update with momentum 1 writes them here
+        self.register_buffer("_batch_mean", torch.zeros_like(
+            self.running_mean), persistent=False)
+        self.register_buffer("_batch_var", torch.ones_like(
+            self.running_var), persistent=False)
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        # momentum 1 leaves the batch's mean and unbiased variance in the
+        # scratch; fold them in with the biased variance (the same op
+        # either way, so that a checkpointed re-run saves what the forward
+        # saved)
+        mean, var = self._batch_mean, self._batch_var
+        out = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0,
+                           self.eps)
+        if not self.update_stats:
+            return out
+        n = x.numel() // x.shape[1]
+        m = self.momentum
+        with torch.no_grad():
+            self.running_mean.lerp_(mean, m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m * (n - 1) / n)
+            self.num_batches_tracked.add_(1)
+        return out
+
+
+@contextlib.contextmanager
+def frozen_running_stats(model: nn.Module):
+    """Within it, train-mode forwards of ``model``'s BatchNorms leave
+    their running statistics alone: for the forward that
+    ``torch.utils.checkpoint`` re-runs in backward, so that a step updates
+    them once, as ``jax.checkpoint`` does."""
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
+    for bn in bns:
+        bn.update_stats = False
+    try:
+        yield
+    finally:
+        for bn in bns:
+            bn.update_stats = True
+
+
 def _maxpool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
     """torch MaxPool2d(3, stride 2, padding 1)."""
     return F.max_pool2d(x, 3, stride=2, padding=1)
@@ -43,14 +105,14 @@ class BasicBlock(nn.Module):
         super().__init__()
         kw = dict(device=resolve_device(device), dtype=dtype)
         self.conv1 = nn.Conv2d(cin, cout, 3, stride, 1, bias=False, **kw)
-        self.bn1 = nn.BatchNorm2d(cout, **kw)
+        self.bn1 = BatchNorm2d(cout, **kw)
         self.conv2 = nn.Conv2d(cout, cout, 3, 1, 1, bias=False, **kw)
-        self.bn2 = nn.BatchNorm2d(cout, **kw)
+        self.bn2 = BatchNorm2d(cout, **kw)
         self.downsample = None
         if stride != 1 or cin != cout:
             self.downsample = nn.Sequential(
                 nn.Conv2d(cin, cout, 1, stride, bias=False, **kw),
-                nn.BatchNorm2d(cout, **kw))
+                BatchNorm2d(cout, **kw))
 
     def forward(self, x):
         residual = x if self.downsample is None else self.downsample(x)
@@ -80,7 +142,7 @@ class ResNetEncoder(nn.Module):
         dev = resolve_device(device)
         kw = dict(device=dev, dtype=dtype)
         self.input_conv = nn.Conv2d(1, 64, 7, 2, 3, bias=False, **kw)
-        self.bn1 = nn.BatchNorm2d(64, **kw)
+        self.bn1 = BatchNorm2d(64, **kw)
         cin = 64
         for li, (width, n) in enumerate(zip((64, 128, 256, 512),
                                             block_counts)):

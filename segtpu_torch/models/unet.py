@@ -32,8 +32,8 @@ import torch.nn.functional as F
 from segtpu_torch import resolve_device
 from segtpu_torch.kernels.fused_conv import upsample2x_concat
 from segtpu_torch.models.attention import AttentionGate, ChannelAttention
-from segtpu_torch.models.backbones import (BACKBONE_CHANNELS, make_encoder,
-                                           resnet_features)
+from segtpu_torch.models.backbones import (BACKBONE_CHANNELS, BatchNorm2d,
+                                           make_encoder, resnet_features)
 from segtpu_torch.ops.resize import resize_bilinear
 
 # Per level (upconv out, decoder out), then the attention-gate
@@ -62,9 +62,9 @@ class _DecoderBlock(nn.Sequential):
         kw = dict(device=resolve_device(device), dtype=dtype)
         super().__init__(
             nn.Conv2d(cin, features, 3, padding=1, **kw),
-            nn.BatchNorm2d(features, **kw), nn.ReLU(),
+            BatchNorm2d(features, **kw), nn.ReLU(),
             nn.Conv2d(features, features, 3, padding=1, **kw),
-            nn.BatchNorm2d(features, **kw), nn.ReLU())
+            BatchNorm2d(features, **kw), nn.ReLU())
 
 
 class _UpConv2x(nn.ConvTranspose2d):
@@ -81,8 +81,10 @@ class _UpConv2x(nn.ConvTranspose2d):
             return super().forward(x)
         if skip is None:
             raise ValueError("_UpConv2x: fused=True needs skip")
+        # the weight in the activations' dtype (f32 parameters under
+        # autocast), as the unfused transposed conv casts it
         out = upsample2x_concat(x.permute(0, 2, 3, 1),
-                                self.weight.permute(0, 2, 3, 1),
+                                self.weight.to(x.dtype).permute(0, 2, 3, 1),
                                 self.bias.float(), skip.permute(0, 2, 3, 1))
         return out.permute(0, 3, 1, 2)
 
@@ -140,12 +142,43 @@ class UNetWithBackbone(nn.Module):
         self.upconv0 = nn.ConvTranspose2d(plan["head_in"], 16, 2, stride=2,
                                           **kw)
         self.conv_final = nn.Conv2d(16, n_classes, 1, **kw)
-        if final_bias_prior is not None:
+        self.final_bias_prior = final_bias_prior
+        self._set_final_bias_prior()
+        self.to(memory_format=torch.channels_last)
+
+    def _set_final_bias_prior(self):
+        if self.final_bias_prior is not None:
             # foreground prior p for the final bias, log(p/(1-p))
-            p = float(final_bias_prior)
+            p = float(self.final_bias_prior)
             with torch.no_grad():
                 self.conv_final.bias.fill_(math.log(p / (1.0 - p)))
-        self.to(memory_format=torch.channels_last)
+
+    def reset_parameters(self, generator: torch.Generator) -> "UNetWithBackbone":
+        """Redraw every parameter as the JAX package's model initialises
+        it (flax's defaults): conv and transposed-conv kernels from a
+        normal truncated at ±2σ with variance 1/fan_in (fan_in = kernel
+        taps × input channels), biases 0, BatchNorm scale 1 and shift 0,
+        running statistics reset; then the final-bias prior. The draws
+        come from ``generator`` (a CPU generator), in module order, so
+        one seed gives the same weights on every device."""
+        with torch.no_grad():
+            for mod in self.modules():
+                if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
+                    w = mod.weight
+                    cin = w.shape[0] if isinstance(
+                        mod, nn.ConvTranspose2d) else w.shape[1]
+                    std = (1.0 / (cin * w.shape[2] * w.shape[3])) ** 0.5 \
+                        / .87962566103423978
+                    t = torch.empty(w.shape, dtype=torch.float32)
+                    nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std,
+                                          generator=generator)
+                    w.copy_(t)
+                    if mod.bias is not None:
+                        mod.bias.zero_()
+                elif isinstance(mod, BatchNorm2d):
+                    mod.reset_parameters()
+        self._set_final_bias_prior()
+        return self
 
     def _fused_level(self, d: torch.Tensor) -> bool:
         b, c, h, w = d.shape

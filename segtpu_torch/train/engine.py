@@ -1,0 +1,298 @@
+"""The training engine (port of ``segtpu/train/engine.py``).
+
+A train step is the reference's (train.py:17-68): a train-mode forward,
+the loss, backward, one optimizer update; its metrics come from the
+pre-update train-mode logits. Evaluation runs the model in eval mode, so
+the running BatchNorm statistics are used and the port's kernels run
+(the attention gate, the upsample + concat). An epoch is a plain Python
+loop over the loader's batches; its metrics are sample-weighted totals
+kept on the device and fetched once per epoch. (The JAX package scans an
+epoch as one program and buckets its length, only to spare XLA
+recompiles; nothing here compiles.)
+
+``config["dtype"] == "bfloat16"`` means what it means in flax: parameters
+and optimizer state stay float32, the forward computes in bf16
+(``torch.autocast``); the loss and the metrics take the logits in
+float32. ``remat="full"`` re-runs the forward in backward
+(``torch.utils.checkpoint``) with the BatchNorm running statistics held
+still in the re-run, so a step updates them once, as ``jax.checkpoint``.
+
+The model's weights live in a ``TrainState`` (the model and its
+optimizer), not in the engine: one engine can serve every fold of a
+sweep.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from segtpu_torch import resolve_device
+from segtpu_torch.losses import get_loss_function
+from segtpu_torch.metrics import calculate_metrics
+from segtpu_torch.models.backbones import frozen_running_stats
+from segtpu_torch.models.unet import UNetWithBackbone
+from segtpu_torch.train.optim import make_optimizer, set_learning_rate
+
+METRIC_KEYS = ("precision", "recall", "f1", "iou", "accuracy", "loss")
+
+_COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _at_least_f32(logits: torch.Tensor) -> torch.Tensor:
+    """Logits as the loss and the metrics take them: bf16 → float32."""
+    return logits.float() if logits.dtype == torch.bfloat16 else logits
+
+
+@dataclass
+class TrainState:
+    """The model (parameters and BatchNorm statistics, float32) and its
+    optimizer (None for a state restored only to predict)."""
+    model: UNetWithBackbone
+    optimizer: Optional[torch.optim.Optimizer] = None
+
+
+class TrainEngine:
+    """Train and eval steps and epochs for one (model configuration, loss,
+    optimizer) triple on one device."""
+
+    def __init__(self, model_kwargs: Dict, loss_fn: Callable,
+                 multiclass: bool = False, remat: str = "none",
+                 optimizer: str = "adam",
+                 optimizer_kwargs: Optional[Dict] = None,
+                 compute_dtype=torch.float32, *, device="cuda"):
+        if remat not in ("none", "full"):
+            raise ValueError(f"remat must be 'none' or 'full'; got {remat!r}")
+        self.device = resolve_device(device)
+        self.model_kwargs = dict(model_kwargs)
+        self.n_classes = int(self.model_kwargs.get("n_classes", 1))
+        self.backbone = self.model_kwargs.get("backbone", "resnet34")
+        self.loss_fn = loss_fn
+        self.multiclass = multiclass
+        self.remat = remat
+        self.compute_dtype = compute_dtype
+        if multiclass:
+            from segtpu_torch.losses.multiclass import \
+                calculate_metrics_multiclass
+            self._act = lambda lg: torch.softmax(lg, dim=1)
+            self._metrics = calculate_metrics_multiclass
+        else:
+            self._act = torch.sigmoid
+            self._metrics = calculate_metrics
+        self.optimizer_name = optimizer
+        self.optimizer_kwargs = dict(optimizer_kwargs or {})
+
+    # ------------------------------------------------------------ init
+
+    def build_model(self) -> UNetWithBackbone:
+        """The model on the device, torch's default initialisation (a
+        state is made from it by ``init_state`` or ``state_from``)."""
+        return UNetWithBackbone(**self.model_kwargs, device=self.device)
+
+    def make_optimizer(self, model, learning_rate: float,
+                       weight_decay: float):
+        return make_optimizer(self.optimizer_name, model.parameters(),
+                              learning_rate, weight_decay,
+                              **self.optimizer_kwargs)
+
+    def init_state(self, generator: torch.Generator, learning_rate: float,
+                   weight_decay: float) -> TrainState:
+        """A fresh model, its weights drawn as the JAX package's are
+        (``UNetWithBackbone.reset_parameters``) from ``generator`` (a CPU
+        generator), and a fresh optimizer."""
+        model = self.build_model().reset_parameters(generator)
+        return TrainState(model, self.make_optimizer(model, learning_rate,
+                                                     weight_decay))
+
+    def state_from(self, state_dict: Dict[str, torch.Tensor],
+                   learning_rate: float, weight_decay: float) -> TrainState:
+        """A model holding ``state_dict`` (reference key names, strict)
+        with a fresh optimizer."""
+        model = self.build_model()
+        model.load_state_dict(state_dict, strict=True)
+        return TrainState(model, self.make_optimizer(model, learning_rate,
+                                                     weight_decay))
+
+    # ------------------------------------------------------------ steps
+
+    def autocast(self):
+        """The compute-dtype context of every forward: autocast to bf16
+        for ``dtype="bfloat16"``, else nothing."""
+        if self.compute_dtype == torch.float32:
+            return contextlib.nullcontext()
+        return torch.autocast(self.device.type, dtype=self.compute_dtype)
+
+    def _forward_train(self, model, images):
+        if self.remat == "full":
+            return checkpoint(
+                model, images, use_reentrant=False,
+                context_fn=lambda: (contextlib.nullcontext(),
+                                    frozen_running_stats(model)))
+        return model(images)
+
+    def _metric_vec(self, logits, masks, loss) -> torch.Tensor:
+        with torch.no_grad():
+            m = self._metrics(self._act(logits.detach()), masks)
+            m["loss"] = loss.detach()
+            return torch.stack([m[k].float() for k in METRIC_KEYS])
+
+    def _micro_step(self, model, images, masks, scale: float
+                    ) -> torch.Tensor:
+        """Forward, loss, backward (gradients added, scaled by
+        ``scale``); returns the metric vector of the pre-update logits."""
+        with self.autocast():
+            logits = _at_least_f32(self._forward_train(model, images))
+        loss = self.loss_fn(logits, masks)
+        (loss * scale if scale != 1.0 else loss).backward()
+        return self._metric_vec(logits, masks, loss)
+
+    def _train_step_vec(self, state: TrainState, images, masks
+                        ) -> torch.Tensor:
+        model, opt = state.model, state.optimizer
+        model.train()
+        opt.zero_grad(set_to_none=True)
+        vec = self._micro_step(model, images, masks, 1.0)
+        opt.step()
+        return vec
+
+    def train_step(self, state: TrainState, images, masks,
+                   lr: Optional[float] = None
+                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """One update on a batch (B, 1, S, S); metrics as 0-d tensors."""
+        if lr is not None:
+            set_learning_rate(state.optimizer, lr)
+        vec = self._train_step_vec(state, images, masks)
+        return state, dict(zip(METRIC_KEYS, vec))
+
+    def train_step_accum(self, state: TrainState, images, masks,
+                         lr: Optional[float] = None
+                         ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """Gradient accumulation: images/masks (A, b, 1, S, S), A
+        micro-batches in sequence folded into one update. Each micro-batch
+        normalises by its own BatchNorm statistics and moves the running
+        statistics in turn; the gradients and the metrics are averaged
+        over A."""
+        if lr is not None:
+            set_learning_rate(state.optimizer, lr)
+        model, opt = state.model, state.optimizer
+        model.train()
+        opt.zero_grad(set_to_none=True)
+        a = images.shape[0]
+        total = sum(self._micro_step(model, images[i], masks[i], 1.0 / a)
+                    for i in range(a))
+        opt.step()
+        return state, dict(zip(METRIC_KEYS, total / a))
+
+    def _eval_step_vec(self, state: TrainState, images, masks
+                       ) -> torch.Tensor:
+        model = state.model
+        model.eval()
+        with torch.no_grad(), self.autocast():
+            logits = _at_least_f32(model(images))
+        return self._metric_vec(logits, masks, self.loss_fn(logits, masks))
+
+    # ------------------------------------------------------------ epochs
+
+    def _epoch_totals(self, step, loader, generator=None) -> torch.Tensor:
+        """Sample-weighted metric totals (6,) of ``step`` over the
+        loader's batches, on the device."""
+        (fi, fm), rem = loader.batches(generator)
+        totals = torch.zeros(len(METRIC_KEYS), device=loader.device)
+        for i in range(fi.shape[0]):
+            totals += step(fi[i], fm[i]) * fi.shape[1]
+        if rem is not None:
+            totals += step(*rem) * rem[0].shape[0]
+        return totals
+
+    def _train_totals(self, state, loader, lr, generator):
+        set_learning_rate(state.optimizer, lr)
+        return self._epoch_totals(
+            lambda i, m: self._train_step_vec(state, i, m), loader,
+            generator)
+
+    def _eval_totals(self, state, loader):
+        return self._epoch_totals(
+            lambda i, m: self._eval_step_vec(state, i, m), loader)
+
+    def run_train_epoch(self, state: TrainState, loader, lr: float,
+                        generator: Optional[torch.Generator] = None
+                        ) -> Tuple[TrainState, Dict[str, float]]:
+        """One training epoch (reference: train.py:17-68);
+        sample-weighted epoch metrics as floats."""
+        vals = self._train_totals(state, loader, lr, generator).cpu()
+        vals = vals / loader.n
+        return state, dict(zip(METRIC_KEYS, vals.tolist()))
+
+    def run_eval_epoch(self, state: TrainState, loader) -> Dict[str, float]:
+        """Evaluation epoch (reference: train.py:71-112)."""
+        vals = self._eval_totals(state, loader).cpu() / loader.n
+        return dict(zip(METRIC_KEYS, vals.tolist()))
+
+    def run_train_and_eval_epoch(self, state: TrainState, train_loader,
+                                 val_loader, lr: float,
+                                 generator: Optional[torch.Generator] = None):
+        """A training epoch and a validation pass with one host fetch of
+        both metric totals."""
+        tt = self._train_totals(state, train_loader, lr, generator)
+        vt = self._eval_totals(state, val_loader)
+        tv, vv = torch.stack([tt, vt]).cpu()
+        return (state, dict(zip(METRIC_KEYS, (tv / train_loader.n).tolist())),
+                dict(zip(METRIC_KEYS, (vv / val_loader.n).tolist())))
+
+
+_OPTIMIZER_KW = ("momentum", "nesterov", "b1", "b2", "adam_eps")
+
+
+def _optimizer_spec(config: Dict) -> Tuple[str, Dict]:
+    """(name, kwargs) of the optimizer config names."""
+    name = str(config.get("optimizer", "adam")).lower()
+    kw = {}
+    for k in _OPTIMIZER_KW:
+        if config.get(k) is not None:
+            kw["eps" if k == "adam_eps" else k] = config[k]
+    if name != "sgd":
+        kw.pop("momentum", None)
+        kw.pop("nesterov", None)
+    return name, kw
+
+
+def get_engine(config: Dict, criterion: Optional[Callable] = None, *,
+               device="cuda") -> TrainEngine:
+    """A new engine for config (reference key names: backbone,
+    use_attention, n_classes, dtype, final_bias_prior, fuse, remat,
+    fuse_gate, the loss keys, optimizer and its keys) on ``device``;
+    ``criterion`` replaces the configured loss. The port's defaults:
+    ``fuse="kernel"``, ``fuse_gate=True``. (The JAX package caches engines
+    to share compiled programs; an engine here holds only its settings
+    and a loss function, so none is cached.)"""
+    dev = resolve_device(device)
+    if config.get("reparam_in_train", False):
+        raise NotImplementedError(
+            "reparam_in_train=True (the stem rewrite in training) is not "
+            "ported yet (ROADMAP A2)")
+    dtype = str(config.get("dtype", "float32"))
+    if dtype not in _COMPUTE_DTYPES:
+        raise ValueError(f"dtype must be one of {sorted(_COMPUTE_DTYPES)}; "
+                         f"got {dtype!r}")
+    n_classes = int(config.get("n_classes", 1))
+    model_kwargs = dict(backbone=config.get("backbone", "resnet34"),
+                        use_attention=bool(config.get("use_attention", True)),
+                        n_classes=n_classes,
+                        final_bias_prior=config.get("final_bias_prior"),
+                        fuse=str(config.get("fuse", "kernel")),
+                        fuse_gate=bool(config.get("fuse_gate", True)))
+    multiclass = n_classes > 1
+    if criterion is None and multiclass:
+        from segtpu_torch.losses.multiclass import get_multiclass_loss
+        criterion = get_multiclass_loss(config)
+    elif criterion is None:
+        criterion = get_loss_function(config)
+    opt_name, opt_kw = _optimizer_spec(config)
+    return TrainEngine(model_kwargs, criterion, multiclass=multiclass,
+                       remat=str(config.get("remat", "none")),
+                       optimizer=opt_name, optimizer_kwargs=opt_kw,
+                       compute_dtype=_COMPUTE_DTYPES[dtype], device=dev)
