@@ -50,7 +50,26 @@ it, or when any phase fails:
    no-attention ``Segmenter`` for 1 epoch, whose validation pass runs the
    upsample kernel, then with the upsample kernel against without it; a
    ``train {...}`` line;
-8. one JSON line ``{"kernels": [...]}``, then the card line, then the
+8. data: a directory of TIFFs written with the port's
+   ``make_synthetic_dataset`` (20 W pairs at a raw 1040×1392) and
+   ``write_tiff`` (8 W pairs at 768×1024, 4 B pairs that discovery must
+   skip); ``load_original_data`` pairs the 28 W files; the flagship
+   ``Segmenter`` fits 1 epoch on 24 of them with 3 augmentations per
+   image (96 training images, 12 steps of B=8, bf16) and validates on 4,
+   then predicts all 28 from their paths. Checks (f) every file decoded
+   once by the native reader (56 decodes, 0 by Pillow), bit for bit the
+   pixels written; (g) ``load_canonical`` on the card against the same
+   call on the CPU; (h) the augmentation on the card: originals first,
+   bit for bit, N·4 frames, binary masks, each production transform's
+   apply against its apply on the CPU for the same draws, and the mask
+   of rot90 and vflip moved exactly as the image; (i) 4 gate launches per
+   validation and predict forward, finite losses, ``predict(paths)``
+   equal to ``predict`` of their canonical frames, and at the predict
+   forward's batch of 28 the trained model with the gate kernel against
+   the unfused gate, and each of that forward's four gate calls against
+   the plain version on its inputs. A ``data {...}`` line (the reader's
+   g++ build is timed apart, before the fit);
+9. one JSON line ``{"kernels": [...]}``, then the card line, then the
    result line ``{"ok": true, "device": {...}}``.
 
 The weights are random, made from a fixed seed; the BatchNorm running
@@ -149,6 +168,19 @@ TRAIN_CONFIG = {"img_size": (SIZE, SIZE), "batch_size": 8,
 TRAIN_IMAGES, VAL_IMAGES, PREDICT_IMAGES = 16, 4, 16
 # The step time: the median of this many steps on one resident batch.
 TIMED_STEPS = 30
+# The data phase: (pairs, raw (H, W)) of the two W shape groups, the B
+# pairs discovery skips, and the split: fit on the first 24 of the 28 W
+# pairs in discovery's order with 3 augmentations per image, validate on
+# the last 4, 1 epoch; predict all 28.
+DATA_GROUPS = ((20, (1040, 1392)), (8, (768, 1024)))
+DATA_B_PAIRS, DATA_TRAIN, DATA_AUGMENTATIONS = 4, 24, 3
+DATA_CONFIG = dict(TRAIN_CONFIG, num_epochs=1)
+# (g): canonical images from the card's resize and the CPU's within one
+# level at no more than this share of pixels (float32 sums in another
+# order; a sum an ulp either side of a half rounds either way); masks
+# exact. (h): a transform's apply on the card against the CPU's within
+# one level on the images, masks equal at all but this share of pixels.
+TOL_CANON_SHARE = 1e-3
 
 FAILURES: list = []
 
@@ -776,11 +808,11 @@ def _step_ms(engine, state, x, y, steps: int) -> list:
 
 
 def _kernel_vs_plain(seg, images, masks, use_kernel, kernel, label) -> dict:
-    """Check (d)/(e): ``seg``'s trained model with its kernel
-    (``use_kernel(model, True)``) and without, on the same validation
-    images: ``predict_proba`` within §2's 0.05 bar, the validation IoU
-    (``evaluate``) within TOL_TRAIN_IOU; the kernel must have launched in
-    the kernel's turn."""
+    """Checks (d), (e) and (i): ``seg``'s trained model with its kernel
+    (``use_kernel(model, True)``) and without, on the same images:
+    ``predict_proba`` (all images in one forward) within §2's 0.05 bar,
+    the IoU (``evaluate``) within TOL_TRAIN_IOU; the kernel must have
+    launched in the kernel's turn."""
     from segtpu_torch.kernels import launch_counts, reset_launch_counts
     model = seg.state.model
     use_kernel(model, True)
@@ -795,10 +827,52 @@ def _kernel_vs_plain(seg, images, masks, use_kernel, kernel, label) -> dict:
     perr = float(np.abs(p_on - p_off).max())
     check(launched > 0 and perr <= TOL_PROBS
           and abs(iou_on - iou_off) <= TOL_TRAIN_IOU,
-          f"train {label}: {kernel} ({launched} launches) vs the unfused "
+          f"{label}: {kernel} ({launched} launches) vs the unfused "
           f"model: probs max_abs_err {perr:.3g} (tol {TOL_PROBS}), IoU "
           f"{iou_on:.4f} vs {iou_off:.4f} (tol {TOL_TRAIN_IOU})")
     return dict(launches=launched, probs_err=perr, iou=[iou_on, iou_off])
+
+
+def _gate_on(model, on):
+    model.fuse_gate = on
+
+
+def _gate_at_path_inputs(seg, images) -> dict:
+    """Check (i): every gate call of one ``predict_proba`` forward of
+    ``images`` (all of them in one forward, so the gate runs at B = their
+    count on four levels): the kernel's output there against the plain
+    version on the same inputs, within TOL_BF16 of the output's scale."""
+    import segtpu_torch.models.attention as attention
+    from segtpu_torch.kernels.attention_gate import attention_gate_plain
+    kernel, calls = attention.attention_gate, []
+
+    def record(*args):
+        out = kernel(*args)
+        calls.append(([a.clone() for a in args], out.clone()))
+        return out
+
+    attention.attention_gate = record
+    try:
+        seg.predict_proba(images)
+    finally:
+        attention.attention_gate = kernel
+    torch.cuda.synchronize()
+    shapes, errs, shares, ok = [], [], [], len(calls) == 4
+    for args, out in calls:
+        ref = attention_gate_plain(*[a.float() for a in args])
+        err = (out.float() - ref).abs().max().item()
+        tol = TOL_BF16 * max(1.0, ref.abs().max().item())
+        ok = ok and err <= tol and out.shape[0] == len(images)
+        shapes.append([*out.shape[:3], args[0].shape[-1], out.shape[-1],
+                       args[2].shape[-1]])
+        errs.append(err)
+        shares.append(err / tol)
+    check(ok, f"data (i): attention_gate at the predict forward's inputs, "
+          f"{len(calls)} calls (want 4), (B, H, W, Cg, Cx, F) {shapes}: "
+          f"max_abs_err {errs}, {shares} of the tolerance ({TOL_BF16:.3g} "
+          f"of each output's scale)")
+    return dict(gate_path_shapes=shapes, gate_path_max_abs_err=errs,
+                gate_path_tol_share=shares)
 
 
 def _optimizer_step_refolds(seg, device) -> dict:
@@ -879,15 +953,12 @@ def phase_training(device="cuda", backbone="resnet34", size=SIZE) -> dict:
 
     # (d): the trained model with the gate kernel and without it, after
     # fit and after an optimizer step alone, which must refold the gates
-    def gate_on(model, on):
-        model.fuse_gate = on
-
-    after_fit = _kernel_vs_plain(seg, imgs[va], masks[va], gate_on,
-                                 "attention_gate", "(d) after fit")
+    after_fit = _kernel_vs_plain(seg, imgs[va], masks[va], _gate_on,
+                                 "attention_gate", "train (d) after fit")
     res.update(_optimizer_step_refolds(seg, device))
-    after_step = _kernel_vs_plain(seg, imgs[va], masks[va], gate_on,
+    after_step = _kernel_vs_plain(seg, imgs[va], masks[va], _gate_on,
                                   "attention_gate",
-                                  "(d) after an optimizer step alone")
+                                  "train (d) after an optimizer step alone")
 
     # the step time: TIMED_STEPS steps on one resident batch; the device's
     # busy share is the profiled device time per step over that time
@@ -919,7 +990,7 @@ def phase_training(device="cuda", backbone="resnet34", size=SIZE) -> dict:
         model.fuse = "kernel" if on else "none"
 
     upsample = _kernel_vs_plain(plain_seg, imgs[va], masks[va], fuse_on,
-                                "upsample2x_concat", "(e) after fit")
+                                "upsample2x_concat", "train (e) after fit")
 
     quart = statistics.quantiles(step_ms, n=10)
     res.update(
@@ -938,6 +1009,234 @@ def phase_training(device="cuda", backbone="resnet34", size=SIZE) -> dict:
     if "profile_busy_ms" in profiled:
         res["busy_share_unprofiled"] = profiled["profile_busy_ms"] / step_med
     print("train " + json.dumps(res), flush=True)
+    return res
+
+
+def _write_w_group(root, n, raw, rng):
+    """n W pairs of blobs at ``raw`` under names of their own (discovery
+    sorts them after ``make_synthetic_dataset``'s); returns the arrays
+    written, by path."""
+    import os
+    from segtpu_torch.data.io import write_tiff
+    written = {}
+    yy, xx = np.mgrid[:raw[0], :raw[1]]
+    for i in range(n):
+        mask = np.zeros(raw, np.uint8)
+        for _ in range(rng.integers(3, 7)):
+            cy, cx = rng.integers(0, raw[0]), rng.integers(0, raw[1])
+            r = rng.uniform(raw[0] / 40, raw[0] / 12)
+            mask[(yy - cy) ** 2 + (xx - cx) ** 2 < r * r] = 255
+        img = (rng.normal(60, 15, raw) + 0.35 * mask).clip(0, 255).astype(
+            np.uint8)
+        stem = f"Img_C_D_2W_{i:03d}"
+        for sub, name, arr in (("Labelled_images", f"{stem}.tif", img),
+                               ("GT_masks", f"{stem}_GT.tif", mask)):
+            path = os.path.join(root, sub, name)
+            write_tiff(path, arr)
+            written[path] = arr
+    return written
+
+
+def _file_pixels(path, shape):
+    """The pixels of a TIFF that ``write_tiff`` wrote: its last H·W bytes
+    (one uncompressed strip at the end), read without any decoder."""
+    with open(path, "rb") as f:
+        data = f.read()
+    return np.frombuffer(data[-shape[0] * shape[1]:], np.uint8).reshape(
+        shape)
+
+
+def _augment_checks(canon_i, canon_m, device) -> dict:
+    """Check (h): ``CellAugmenter`` on the card and the production
+    transforms' apply on the card against the CPU. Returns its numbers."""
+    from segtpu_torch.data import augment
+    n = canon_i.shape[0]
+    aug = augment.CellAugmenter(DATA_AUGMENTATIONS, seed=SEED, device=device)
+    ai, am = aug.augment_training_data(canon_i, canon_m)
+    torch.cuda.synchronize()
+    first = (torch.equal(ai[:n].cpu(), torch.from_numpy(canon_i))
+             and torch.equal(am[:n].cpu(), torch.from_numpy(canon_m)))
+    binary = set(am.unique().tolist()) <= {0, 1}
+    check(first and binary and ai.shape[0] == n * (DATA_AUGMENTATIONS + 1),
+          f"data (h): CellAugmenter on {device}: {ai.shape[0]} frames (want "
+          f"{n * (DATA_AUGMENTATIONS + 1)}), the first {n} the originals bit "
+          f"for bit {first}, masks binary {binary}")
+    per_image_ms = host_ms(lambda: aug.augment_training_data(
+        canon_i, canon_m), iters=3) / (n * DATA_AUGMENTATIONS)
+    # each production transform: the same draws (made on the CPU) applied
+    # on the card and on the CPU, to 4 canonical frames
+    img = torch.from_numpy(canon_i[:4]).float()
+    mask = torch.from_numpy(canon_m[:4]).float() * 255
+    worst = {}
+    for t, _, _ in augment._production_pipeline().steps:
+        name = type(t).__name__
+        params = t.draw(torch.Generator().manual_seed(SEED), 4,
+                        img.shape[-1])
+        on_card = {k: v.to(device) for k, v in params.items()}
+        wi, wm = t.apply(img, mask, params)
+        gi, gm = (x.cpu() for x in t.apply(img.to(device), mask.to(device),
+                                           on_card))
+        levels = float((torch.floor(gi + 0.5)
+                        - torch.floor(wi + 0.5)).abs().max())
+        mask_share = float((gm != wm).float().mean())
+        moved = True           # an image that is its mask stays its mask
+        if name in ("RandomRotate90", "VerticalFlip"):
+            a, b = t.apply(mask.to(device), mask.to(device), on_card)
+            moved = torch.equal(a, b)
+        check(levels <= 1 and mask_share <= TOL_CANON_SHARE and moved,
+              f"data (h): {name} apply on {device} vs the CPU, same draws: "
+              f"{levels:g} levels (tol 1), masks differ at {mask_share:.3g} "
+              f"(tol {TOL_CANON_SHARE}), mask moved as the image {moved}")
+        worst[name] = [levels, mask_share]
+    return dict(augment_ms_per_image=per_image_ms, augment_frames=int(
+        ai.shape[0]), augment_vs_cpu=worst)
+
+
+def phase_data(device="cuda", backbone="resnet34", size=SIZE) -> dict:
+    """The flagship fitted from a directory of TIFFs with the production
+    augmentation: checks (f)-(i) of the module docstring and the ``data``
+    line. Returns it."""
+    import os
+    import tempfile
+    from segtpu_torch.api import Segmenter
+    from segtpu_torch.data import io
+    from segtpu_torch.data.discovery import load_original_data
+    from segtpu_torch.data.native import build, native_decode_batch
+    from segtpu_torch.data.preprocess import (load_canonical,
+                                              load_canonical_images,
+                                              normalize_canonical)
+    from segtpu_torch.kernels import launch_counts, reset_launch_counts
+    rng = np.random.default_rng(SEED)
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="segtpu-torch-data-") as root:
+        (n_a, raw_a), (n_b, raw_b) = DATA_GROUPS
+        t0 = time.perf_counter()
+        io.make_synthetic_dataset(root, n_images=n_a, image_type="W",
+                                  raw_size=raw_a, seed=SEED)
+        io.make_synthetic_dataset(root, n_images=DATA_B_PAIRS,
+                                  image_type="B", raw_size=(256, 256),
+                                  seed=SEED + 1)
+        written = _write_w_group(root, n_b, raw_b, rng)
+        res["write_s"] = time.perf_counter() - t0
+        data = load_original_data(root, image_type="W")
+        ip, mp = data["image_paths"], data["mask_paths"]
+        names = sorted(os.listdir(os.path.join(root, "GT_masks")))
+        want = [m for m in names if m.endswith("GT.tif")
+                and m.split("_")[3][1] == "W"]
+        check(len(ip) == n_a + n_b and [os.path.basename(m) for m in mp]
+              == want and all(os.path.basename(i) == os.path.basename(m)[
+                  :-7] + ".tif" for i, m in zip(ip, mp)),
+              f"data: load_original_data paired {len(ip)} W files (want "
+              f"{n_a + n_b}) in the masks' sorted order, no B file")
+
+        seg = Segmenter(backbone=backbone, use_attention=True,
+                        config=dict(DATA_CONFIG, img_size=(size, size)),
+                        device=device)
+        epochs = _timed_epochs(seg)
+        tr, va = slice(0, DATA_TRAIN), slice(DATA_TRAIN, len(ip))
+        # the TIFF reader's one-time g++ build, outside the fit's window
+        t0 = time.perf_counter()
+        build()
+        res["reader_build_s"] = time.perf_counter() - t0
+        io.clear_decode_cache()
+        io.reset_decode_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        seg.fit(ip[tr], mp[tr], ip[va], mp[va],
+                augmentations_per_image=DATA_AUGMENTATIONS)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        fit_counts = launch_counts()
+        pred = seg.predict(ip)
+        counts = launch_counts()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        decoded = io.decode_counts()
+
+        # (f): every W file decoded once, natively, to the pixels written
+        exact = all(np.array_equal(
+            io.decode_gray(p), written[p] if p in written
+            else _file_pixels(p, io.decode_gray(p).shape)) for p in ip + mp)
+        check(decoded == {"native": 2 * len(ip), "pil": 0} and exact,
+              f"data (f): decodes {decoded} (want native {2 * len(ip)}, "
+              f"pil 0); every file's pixels as written {exact}")
+
+        # (i): the gate kernel in every validation and predict forward
+        val_forwards = -(-len(ip[va]) // DATA_CONFIG["batch_size"])
+        gate = counts["attention_gate"]
+        losses = [m["loss"] for m in seg.history["train_metrics"]
+                  + seg.history["val_metrics"]]
+        check(fit_counts["attention_gate"] == 4 * val_forwards
+              and gate == 4 * (val_forwards + 1)
+              and all(v == 0 for k, v in counts.items()
+                      if k != "attention_gate"),
+              f"data (i): attention_gate launched {fit_counts['attention_gate']}"
+              f" times in fit's {val_forwards} validation forwards, {gate} "
+              f"with the predict forward (want 4 per forward); {counts}")
+        check(bool(np.isfinite(losses).all()), f"data (i): losses finite "
+              f"({losses})")
+        canon_i = load_canonical_images(ip, (size, size), device=device)
+        same = np.array_equal(seg.predict(canon_i), pred)
+        check(same and pred.shape == (len(ip), size, size, 1),
+              f"data (i): predict(paths) {pred.shape} equals predict of "
+              f"their canonical frames: {same}")
+
+        # timings, then (g): the card's canonical frames against the CPU's
+        io.clear_decode_cache()
+        t0 = time.perf_counter()
+        native_decode_batch(ip + mp)
+        res["native_decode_ms_per_file"] = (
+            (time.perf_counter() - t0) * 1e3 / len(ip + mp))
+        io.clear_decode_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ci, cm = load_canonical(ip, mp, (size, size), device=device)
+        torch.cuda.synchronize()
+        res["load_canonical_ms"] = (time.perf_counter() - t0) * 1e3
+        res["load_canonical_ms_cached"] = host_ms(
+            lambda: load_canonical(ip, mp, (size, size), device=device),
+            iters=3)
+        wi, wm = load_canonical(ip, mp, (size, size), device="cpu")
+        diff = np.abs(ci.astype(np.int16) - wi)
+        levels, share = int(diff.max()), float((diff > 0).mean())
+        check(np.array_equal(cm, wm) and levels <= 1
+              and share <= TOL_CANON_SHARE,
+              f"data (g): load_canonical on {device} vs the CPU: masks equal "
+              f"{np.array_equal(cm, wm)}, images {levels} levels apart at "
+              f"{share:.3g} of pixels (tol 1 at {TOL_CANON_SHARE})")
+        # (i) at the predict forward's batch of 28: the model with the
+        # gate kernel against the unfused gate, and the kernel against its
+        # plain version on the inputs that forward gives it
+        res["gate_vs_unfused"] = _kernel_vs_plain(
+            seg, ci, cm, _gate_on, "attention_gate",
+            f"data (i) after fit, B={len(ip)}")
+        res.update(_gate_at_path_inputs(seg, ci))
+        x = torch.from_numpy(ci).to(device)
+        res["normalize_ms"] = time_ms(lambda: normalize_canonical(x))
+        res.update(_augment_checks(ci[tr], cm[tr], device))
+
+    steps = -(-DATA_TRAIN * (DATA_AUGMENTATIONS + 1)
+              // DATA_CONFIG["batch_size"])
+    res.update(
+        backbone=backbone, size=size, pairs=len(ip),
+        raw_shapes=[list(raw_a), list(raw_b)],
+        train_images=DATA_TRAIN * (DATA_AUGMENTATIONS + 1),
+        val_images=len(ip) - DATA_TRAIN, predict_images=len(ip),
+        decodes=decoded, fit_host_s=fit_s, steps=steps,
+        epoch_host_s=epochs,
+        # the epoch's training images over its host seconds (its 12 steps,
+        # the validation forward and the metrics' fetch)
+        epoch_img_per_s=DATA_TRAIN * (DATA_AUGMENTATIONS + 1) / epochs[0],
+        max_memory_gib=peak, launches=counts,
+        canonical_vs_cpu=[levels, share], losses=losses,
+        allow_tf32=[torch.backends.cuda.matmul.allow_tf32,
+                    torch.backends.cudnn.allow_tf32],
+        clock="host s (write, reader build, fit, epoch, decode, "
+              "load_canonical, augment); "
+              "CUDA events (normalize)")
+    print("data " + json.dumps(res), flush=True)
     return res
 
 
@@ -967,11 +1266,13 @@ def main() -> int:
               "upsample2x_concat": phase_serving(False)}
     benched = phase_benches()
     trained = phase_training()
+    loaded = phase_data()
     # each kernel's launches on its own main paths: the serving model and
-    # the training run that run it, or the bench entry points for the conv
-    # and the pair
+    # the training runs that run it, or the bench entry points for the
+    # conv and the pair
     launches = {"attention_gate": served["attention_gate"]["launches"]
-                + trained["launches"]["attention_gate"],
+                + trained["launches"]["attention_gate"]
+                + loaded["launches"]["attention_gate"],
                 "upsample2x_concat": served["upsample2x_concat"]["launches"]
                 + trained["upsample_launches_no_attention"],
                 "conv3x3_bn_relu": benched["conv3x3_bn_relu"],

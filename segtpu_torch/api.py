@@ -2,8 +2,10 @@
 
 ``Segmenter`` wraps the training engine, the training loop, whole-image
 inference and checkpoints behind one object, on ``device`` (default
-``cuda``; raises without CUDA unless ``device='cpu'``). Inputs are
-canonical uint8 arrays (N, S, S) or normalised float arrays (N, S, S[,1]).
+``cuda``; raises without CUDA unless ``device='cpu'``). Inputs are lists
+of image (and mask) paths, uint8 arrays (N, H, W), resized to
+``img_size`` on the device where they are not at it, or, for the
+predict calls, normalised float arrays (N, S, S[,1]).
 
 ``save`` writes the model's ``state_dict`` under the reference's key
 names (``{name}.pt``), which ``segtpu.models.torch_convert
@@ -11,8 +13,7 @@ names (``{name}.pt``), which ``segtpu.models.torch_convert
 with the JAX package's keys.
 
 Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP item: image paths (A12), ``augmentations_per_image > 0`` (A13),
-``tta`` and ``predict_tiled`` (A19), ``export`` (A20),
+ROADMAP item: ``tta`` and ``predict_tiled`` (A19), ``export`` (A20),
 ``load_pretrained_encoder`` (A14).
 """
 
@@ -27,8 +28,10 @@ import torch
 
 from segtpu_torch import resolve_device
 from segtpu_torch.data.loader import DeviceDataLoader
-from segtpu_torch.data.preprocess import normalize_canonical
+from segtpu_torch.data.preprocess import (_round_u8, load_canonical_images,
+                                          normalize_canonical)
 from segtpu_torch.infer.predict import predict_proba
+from segtpu_torch.ops.resize import resize_area
 from segtpu_torch.train.engine import TrainState, get_engine
 from segtpu_torch.train.loop import _materialize, _to_canonical, quick_train
 
@@ -40,9 +43,11 @@ class Segmenter:
     Example::
 
         seg = Segmenter(backbone="resnet34", use_attention=True)
-        seg.fit(train_imgs_u8, train_masks_u8, val_imgs_u8, val_masks_u8)
-        masks = seg.predict(test_imgs_u8)          # (N, S, S, 1) uint8
-        metrics = seg.evaluate(test_imgs_u8, test_masks_u8)
+        data = load_original_data("manual_labels", "W")
+        seg.fit(data["image_paths"], data["mask_paths"],
+                augmentations_per_image=3)
+        masks = seg.predict(test_paths)            # (N, S, S, 1) uint8
+        metrics = seg.evaluate(test_paths, test_mask_paths)
         seg.save("ckpt_dir")
     """
 
@@ -67,8 +72,10 @@ class Segmenter:
             augmentations_per_image: int = 0, **config_overrides
             ) -> "Segmenter":
         """Train with the reference's standard setup (quick_train,
-        train.py:301-364) on canonical uint8 arrays; with no validation
-        split given, the last fifth (at least one image) is held out."""
+        train.py:301-364) on path lists or canonical uint8 arrays, with
+        ``augmentations_per_image`` augmented copies of every training
+        image; with no validation split given, the last fifth (at least
+        one image) is held out."""
         cfg = dict(self.config)
         cfg.update(config_overrides)
         if val_images is None:
@@ -93,8 +100,9 @@ class Segmenter:
         return self.state
 
     def _prep_images(self, images) -> np.ndarray:
-        """Raw uint8 arrays (normalised here) or preprocessed float
-        arrays → (N, S, S, 1) float32 model inputs, on the host."""
+        """Paths, uint8 arrays (resized to ``img_size`` where they are not
+        at it, and normalised, on the device) or preprocessed float arrays
+        → (N, S, S, 1) float32 model inputs, on the host."""
         img_size = tuple(self.config["img_size"])
         if isinstance(images, str):
             raise TypeError("images must be a list of paths or an array, "
@@ -102,19 +110,17 @@ class Segmenter:
         if len(images) == 0:
             raise ValueError("empty image set")
         if isinstance(images[0], str):
-            raise NotImplementedError(
-                "image paths need the port's data layer (ROADMAP A12); "
-                "pass canonical uint8 arrays (N, S, S)")
-        arr = np.asarray(images)
+            arr = load_canonical_images(list(images), img_size,
+                                        device=self.device)
+        else:
+            arr = np.asarray(images)
         if arr.dtype == np.uint8:
             if arr.ndim == 4:
                 arr = arr[..., 0]
-            if arr.shape[1:3] != img_size:
-                raise NotImplementedError(
-                    f"uint8 images of {arr.shape[1:3]}, not img_size "
-                    f"{img_size}: resizing needs the port's "
-                    "ops/resize.py::resize_area (ROADMAP A12)")
-            x = normalize_canonical(torch.from_numpy(arr).to(self.device))
+            x = torch.from_numpy(arr).to(self.device)
+            if tuple(arr.shape[1:3]) != img_size:
+                x = _round_u8(resize_area(x, img_size))
+            x = normalize_canonical(x)
             return x[:, 0, :, :, None].cpu().numpy()
         if arr.ndim == 3:
             arr = arr[..., None]
@@ -164,10 +170,12 @@ class Segmenter:
     # ---------------------------------------------------------- evaluate
 
     def evaluate(self, images, masks) -> Dict[str, float]:
-        """Sample-weighted loss and confusion metrics on a dataset
-        (train.py:71-112); macro-averaged for n_classes > 1."""
+        """Sample-weighted loss and confusion metrics on a dataset (paths
+        or canonical uint8 arrays; train.py:71-112); macro-averaged for
+        n_classes > 1."""
         state = self._require_state()
-        ci, cm = _to_canonical(images, masks, tuple(self.config["img_size"]))
+        ci, cm = _to_canonical(images, masks, tuple(self.config["img_size"]),
+                               device=self.device)
         imgs, m = _materialize(ci, cm, int(self.config.get("n_classes", 1)),
                                device=self.device)
         loader = DeviceDataLoader(imgs, m, self.config["batch_size"],
@@ -184,7 +192,8 @@ class Segmenter:
         if int(self.config.get("n_classes", 1)) != 1:
             raise ValueError("sweep_threshold is a binary-segmentation "
                              "helper (n_classes == 1)")
-        ci, cm = _to_canonical(images, masks, tuple(self.config["img_size"]))
+        ci, cm = _to_canonical(images, masks, tuple(self.config["img_size"]),
+                               device=self.device)
         imgs, m = _materialize(ci, cm, device=self.device)
         if chunk is None:
             chunk = int(self.config.get("batch_size", 4))

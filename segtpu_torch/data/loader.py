@@ -1,21 +1,68 @@
-"""Device-resident dataset batches (port of ``DeviceDataLoader`` in
+"""Device-resident dataset and batches (port of
 ``segtpu/data/loader.py``).
 
-The whole dataset lives on the device as (N, 1, S, S) float32 tensors;
-an epoch's batches are a device-side permutation (``torch.randperm`` from
-an explicit ``torch.Generator``) split into full batches plus a
-remainder. The path-holding ``CellSegmentationDataset`` and
-``prepare_data`` wait for the port's data layer (ROADMAP A12).
+The whole dataset lives on the device as (N, 1, S, S) float32 tensors,
+built once by ``CellSegmentationDataset.materialize`` from image paths
+(decode, resize, normalise); an epoch's batches are a device-side
+permutation (``torch.randperm`` from an explicit ``torch.Generator``)
+split into full batches plus a remainder.
 """
 
 from __future__ import annotations
 
-from typing import Iterator, Optional, Tuple
+from typing import Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from segtpu_torch import resolve_device
+from segtpu_torch.data.preprocess import (load_canonical,
+                                          normalize_canonical,
+                                          scale_canonical)
+
+
+class CellSegmentationDataset:
+    """Path-holding dataset with microscopy normalisation (reference:
+    dataset.py:17-66) on ``device`` (default ``cuda``; raises without it
+    unless ``device='cpu'``). ``materialize()`` builds the device tensors
+    once; ``__getitem__`` gives one sample as numpy, for inspection."""
+
+    def __init__(self, image_paths: Sequence[str], mask_paths: Sequence[str],
+                 img_size: Tuple[int, int] = (256, 256),
+                 normalize: bool = True,
+                 canonical: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+                 *, device="cuda"):
+        self.image_paths = list(image_paths)
+        self.mask_paths = list(mask_paths)
+        self.img_size = tuple(img_size)
+        self.normalize = normalize
+        self.device = resolve_device(device)
+        self._canonical = canonical   # optional resized uint8 (imgs, masks)
+        self._arrays: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+
+    def __len__(self) -> int:
+        return len(self.image_paths) if self._canonical is None \
+            else len(self._canonical[0])
+
+    def materialize(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(images (N, 1, S, S) float32 in [0, 1], masks (N, 1, S, S)
+        float32 in {0, 1}) on the device."""
+        if self._arrays is None:
+            if self._canonical is not None:
+                ci, cm = self._canonical
+            else:
+                ci, cm = load_canonical(self.image_paths, self.mask_paths,
+                                        self.img_size, device=self.device)
+            ci = torch.as_tensor(np.asarray(ci)).to(self.device)
+            imgs = normalize_canonical(ci) if self.normalize \
+                else scale_canonical(ci)
+            cm = torch.as_tensor(np.asarray(cm)).to(self.device)
+            self._arrays = (imgs, (cm > 0).to(torch.float32)[:, None])
+        return self._arrays
+
+    def __getitem__(self, idx: int) -> Tuple[np.ndarray, np.ndarray]:
+        imgs, masks = self.materialize()
+        return imgs[idx].cpu().numpy(), masks[idx].cpu().numpy()
 
 
 class DeviceDataLoader:
@@ -86,3 +133,16 @@ class DeviceDataLoader:
             yield fi[i], fm[i]
         if rem is not None:
             yield rem[0].cpu().numpy(), rem[1].cpu().numpy()
+
+
+def prepare_data(image_paths: Sequence[str], mask_paths: Sequence[str],
+                 batch_size: int = 2, img_size: Tuple[int, int] = (256, 256),
+                 shuffle: bool = True,
+                 canonical: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+                 *, device="cuda") -> DeviceDataLoader:
+    """The loader of a path list (reference: dataset.py:121-138), on
+    ``device``."""
+    ds = CellSegmentationDataset(image_paths, mask_paths, img_size=img_size,
+                                 canonical=canonical, device=device)
+    return DeviceDataLoader(*ds.materialize(), batch_size=batch_size,
+                            shuffle=shuffle)

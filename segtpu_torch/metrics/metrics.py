@@ -161,15 +161,18 @@ def iou_score(pred, target, apply_post_processing: bool = False,
 
 def compute_foreground_ratio(masks=None, image_type: str = "W",
                              data_dir: str = "manual_labels",
-                             img_size=(256, 256)) -> float:
-    """Fraction of foreground pixels of an iterable or stack of masks.
-    Loading the dataset from ``data_dir`` (``masks=None``) waits for the
-    port's data layer (ROADMAP A12)."""
+                             img_size=(256, 256), *, device="cuda") -> float:
+    """Fraction of foreground pixels (utils.py:9-23) of an iterable or
+    stack of masks, or (``masks=None``, the reference's signature) of the
+    ``image_type`` masks of ``data_dir``, resized to ``img_size`` on
+    ``device``."""
     if masks is None:
-        raise NotImplementedError(
-            "compute_foreground_ratio(masks=None) loads the dataset from "
-            "paths, which waits for the port's data layer (ROADMAP A12); "
-            "pass the masks")
+        from segtpu_torch.data.discovery import load_original_data
+        from segtpu_torch.data.loader import CellSegmentationDataset
+        data = load_original_data(data_dir, image_type)
+        ds = CellSegmentationDataset(data["image_paths"], data["mask_paths"],
+                                     img_size=img_size, device=device)
+        masks = [ds.materialize()[1]]
     total = 0
     fg = 0.0
     for m in masks:

@@ -43,7 +43,13 @@ class BatchNorm2d(nn.BatchNorm2d):
     it. The batch is normalised by the biased variance either way.
     ``num_batches_tracked`` counts the updates (the attention gate's fold
     cache reads it). With ``update_stats`` False a train-mode forward
-    leaves the running statistics alone (``frozen_running_stats``)."""
+    leaves the running statistics alone (``frozen_running_stats``).
+
+    A channel with one value per batch (B·H·W = 1: one image at a 1×1
+    level) is normalised as flax does it, with variance 0: the output is
+    the shift, ``running_mean`` moves toward x and ``running_var`` toward
+    0. ``F.batch_norm`` refuses that input (its unbiased variance is
+    0/0), so that case takes the formula written out."""
 
     def __init__(self, num_features: int, **kw):
         super().__init__(num_features, **kw)
@@ -58,6 +64,9 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        n = x.numel() // x.shape[1]
+        if n == 1:
+            return self._forward_one_value(x)
         # momentum 1 leaves the batch's mean and unbiased variance in the
         # scratch; fold them in with the biased variance (the same op
         # either way, so that a checkpointed re-run saves what the forward
@@ -67,13 +76,29 @@ class BatchNorm2d(nn.BatchNorm2d):
                            self.eps)
         if not self.update_stats:
             return out
-        n = x.numel() // x.shape[1]
         m = self.momentum
         with torch.no_grad():
             self.running_mean.lerp_(mean, m)
             self.running_var.mul_(1.0 - m).add_(var, alpha=m * (n - 1) / n)
             self.num_batches_tracked.add_(1)
         return out
+
+    def _forward_one_value(self, x):
+        """Train-mode forward of a (1, C, 1, 1) input: x − mean is 0, so
+        the output is the shift, and x and the weight get zero gradients,
+        as in flax (a zero, not a missing one: weight decay and Adam's
+        moments still move the weight)."""
+        xc = x - x
+        shape = (1, -1, 1, 1)
+        out = xc * (self.weight.view(shape) * (self.eps ** -0.5)) \
+            + self.bias.view(shape)
+        if self.update_stats:
+            with torch.no_grad():
+                self.running_mean.lerp_(x.reshape(-1).to(
+                    self.running_mean.dtype), self.momentum)
+                self.running_var.mul_(1.0 - self.momentum)
+                self.num_batches_tracked.add_(1)
+        return out.to(x.dtype)
 
 
 @contextlib.contextmanager

@@ -250,3 +250,75 @@ def test_cuda_wrappers_refuse_before_launching(cuda):
     with pytest.raises(ValueError, match="shared memory"):
         conv_pair_bn_relu(x, *wide)
     assert launch_counts() == before
+
+
+# ------------------------------------------------- data layer on the card
+
+# (raw, out): ragged raw frames down to 64², an upscale, a mixed scale,
+# and the flagship's 1040×1392 → 512².
+RESIZE_SHAPES = [((97, 131), (64, 64)), ((31, 45), (64, 64)),
+                 ((130, 50), (64, 64)), ((1040, 1392), (512, 512))]
+
+
+@pytest.mark.parametrize("raw,out", RESIZE_SHAPES,
+                         ids=["ragged", "up", "mixed", "flagship"])
+def test_resize_on_the_card_matches_the_cpu(cuda, raw, out):
+    """Full float32 on both (TF32 off): within 1e-4 on the 0–255 scale;
+    after rounding within one level at no more than 0.1% of pixels."""
+    from segtpu_torch.data.preprocess import _round_u8
+    from segtpu_torch.ops.resize import resize_area, resize_nearest
+    gen = torch.Generator().manual_seed(raw[0])
+    imgs = torch.randint(0, 256, (3, *raw), generator=gen,
+                         dtype=torch.uint8)
+    got, want = resize_area(imgs.to(cuda), out).cpu(), resize_area(imgs, out)
+    assert got.shape == want.shape == (3, *out)
+    assert (got - want).abs().max().item() <= 1e-4
+    diff = (_round_u8(got).int() - _round_u8(want).int()).abs()
+    assert diff.max().item() <= 1 and diff.bool().float().mean() <= 1e-3
+    assert torch.equal(resize_nearest(imgs.to(cuda), out).cpu(),
+                       resize_nearest(imgs, out))
+
+
+def test_resize_area_ignores_a_caller_s_tf32(cuda):
+    """A caller who turns TF32 on gets the same full-float32 resize, and
+    gets the flag back as it was."""
+    from segtpu_torch.ops.resize import resize_area
+    gen = torch.Generator().manual_seed(1)
+    imgs = torch.randint(0, 256, (2, 1040, 1392), generator=gen,
+                         dtype=torch.uint8).to(cuda)
+    want = resize_area(imgs, (512, 512))
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = resize_area(imgs, (512, 512))
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert torch.equal(got, want)
+    assert (got.cpu() - resize_area(imgs.cpu(), (512, 512))).abs().max() \
+        <= 1e-4
+
+
+@pytest.mark.parametrize("name", ["t_random_rotate_90", "t_affine",
+                                  "t_vertical_flip", "t_advanced_blur"])
+def test_production_transform_on_the_card_matches_the_cpu(cuda, name):
+    """The production transforms' apply on 97² frames, the same draws on
+    both: images within one level, masks equal at all but 0.1% of pixels
+    (a coordinate an ulp from a half-pixel can round either way); the
+    relayouts move the mask exactly as the image."""
+    from segtpu_torch.data import augment
+    t = getattr(augment, name)
+    gen = torch.Generator().manual_seed(0)
+    s = 97
+    img = torch.rand(4, s, s, generator=gen) * 255
+    mask = (torch.rand(4, s, s, generator=gen) > 0.7).float() * 255
+    params = t.draw(gen, 4, s)
+    wi, wm = t.apply(img, mask, params)
+    gi, gm = t.apply(img.to(cuda), mask.to(cuda),
+                     {k: v.to(cuda) for k, v in params.items()})
+    gi, gm = gi.cpu(), gm.cpu()
+    assert (torch.floor(gi + 0.5) - torch.floor(wi + 0.5)).abs().max() <= 1
+    assert (gm != wm).float().mean().item() <= 1e-3
+    if name in ("t_random_rotate_90", "t_vertical_flip"):
+        same, moved = t.apply(mask.to(cuda), mask.to(cuda),
+                              {k: v.to(cuda) for k, v in params.items()})
+        assert torch.equal(same, moved)

@@ -38,14 +38,17 @@ def test_source_imports_nothing_of_jax(path):
 
 
 def test_sources_cover_every_port_module():
-    """The glob above reaches the kernel wrappers, the bench tools and the
-    training path, so the two tests here check them too."""
+    """The glob above reaches the kernel wrappers, the bench tools, the
+    training path and the data layer, so the two tests here check them
+    too."""
     names = {str(p.relative_to(ROOT)) for p in SOURCES}
     for mod in ("kernels/attention_gate.py", "kernels/fused_conv.py",
                 "kernels/fused_block.py", "tools/__init__.py",
                 "tools/kernel_bench.py", "tools/fused_block_bench.py",
                 "train/engine.py", "train/loop.py", "losses/registry.py",
-                "api.py"):
+                "api.py", "data/discovery.py", "data/io.py",
+                "data/native.py", "data/augment.py", "data/preprocess.py",
+                "data/loader.py", "ops/resize.py"):
         assert f"segtpu_torch/{mod}" in names
     assert "chip_smoke.py" in names
 

@@ -22,7 +22,9 @@ Tolerances, and why:
 - ``train_model`` over 2 epochs (f32, Adam): epoch losses rtol 1e-4
   (measured 2e-5), IoUs atol 1e-2 (a pixel that crosses 0.5 moves the
   IoU of a 32² validation pair by ~0.003), LR history and best epoch
-  exact.
+  exact; the same bars for one epoch whose last batch holds one image.
+- BatchNorm statistics after one float64 step: within 1e-9 of their
+  tensor's largest entry.
 """
 
 import copy
@@ -218,10 +220,10 @@ def _port_step(use_attention, x, y, dtype):
         st.model.state_dict()
 
 
-@pytest.mark.parametrize("use_attention", [True, False],
-                         ids=["attention", "no-attention"])
-def test_train_step_matches_jax_in_float64(use_attention):
-    x, y = _batch()
+def _check_step_in_float64(use_attention, x, y):
+    """One float64 train step of both packages on (x, y): loss, logits,
+    gradients, updated parameters and BatchNorm statistics. Returns the
+    port's state_dict after the step."""
     with jax.enable_x64(True):
         jl, jlg, jg, jbs, jp = _jax_step(use_attention, x, y, jnp.float64)
     tl, tlg, tg, tsd = _port_step(use_attention, x, y, torch.float64)
@@ -237,10 +239,36 @@ def test_train_step_matches_jax_in_float64(use_attention):
         if k.endswith("num_batches_tracked"):
             assert int(v) == 1
             continue
+        if "running" in k:
+            torch.testing.assert_close(
+                v, want[k], rtol=0, atol=1e-9 * float(want[k].abs().max()))
+            continue
         # Adam's first move is lr·g/(|g| + eps), whose slope at g ≈ 0 is
         # lr/eps: a gradient within 1e-9·gmax moves within that times it
         torch.testing.assert_close(v, want[k], rtol=1e-9,
                                    atol=LR / 1e-8 * 1e-9 * gmax)
+    return tsd
+
+
+@pytest.mark.parametrize("use_attention", [True, False],
+                         ids=["attention", "no-attention"])
+def test_train_step_matches_jax_in_float64(use_attention):
+    _check_step_in_float64(use_attention, *_batch())
+
+
+@pytest.mark.parametrize("use_attention", [True, False],
+                         ids=["attention", "no-attention"])
+def test_train_step_at_batch_one_matches_jax_in_float64(use_attention):
+    """ROADMAP C1: one 32² image reaches the bottom level at 1×1, so each
+    BatchNorm there normalises one value per channel. flax does it with
+    variance 0 (the output is the shift, the running variance moves
+    toward 0); torch's own batch norm refuses the input."""
+    x, y = _batch()
+    tsd = _check_step_in_float64(use_attention, x[:1], y[:1])
+    bottom = _bottom_level_vars(tsd)
+    assert bottom
+    for k, v in bottom.items():           # 0.9·1 + 0.1·0, exactly
+        assert bool((v == 0.9).all()), k
 
 
 def _bottom_level_vars(sd):
@@ -418,21 +446,47 @@ def test_train_model_from_scratch_is_seeded_and_learns():
     assert abs(float(bias) - np.log(fg / (1 - fg))) < 0.1
 
 
+def test_train_model_with_a_remainder_of_one_matches_jax():
+    """ROADMAP C1 through ``train_model``: 5 training images at batch 2,
+    so the epoch's last step trains on one image, whose 1×1 bottom level
+    gives each BatchNorm there one value per channel. The five are one
+    image five times, so that the shuffle order, which the two packages
+    draw from different generators, does not change what either trains
+    on."""
+    r = np.random.default_rng(8)
+    one_i, one_m = _blobs(r, 1)
+    ti, tm = np.repeat(one_i, 5, 0), np.repeat(one_m, 5, 0)
+    vi, vm = _blobs(r, 2)
+    cfg = dict(backbone="resnet_tiny", use_attention=True, img_size=(S, S),
+               batch_size=2, verbose=False, loss_fn="combo", seed=0)
+    _, (p, s) = _jax_init(True)
+    want = jax_train_model(None, ti, tm, vi, vm, num_epochs=1, config=cfg,
+                           initial_state=JaxTrainState(p, s, None))
+    model = _engine(True).build_model()
+    model.load_state_dict(state_dict_from_jax(p, s, "resnet_tiny", True,
+                                              device="cpu"))
+    got = train_model(None, ti, tm, vi, vm, num_epochs=1, device="cpu",
+                      config=cfg, initial_state=TrainState(model))
+    for key in ("train_metrics", "val_metrics"):
+        g, w = got[key][0], want[key][0]
+        np.testing.assert_allclose(g["loss"], w["loss"], rtol=1e-4)
+        for k in ("iou", "f1", "precision", "recall", "accuracy"):
+            np.testing.assert_allclose(g[k], w[k], atol=1e-2)
+
+
 def test_train_model_leaves_out_what_is_not_ported():
     r = np.random.default_rng(4)
     ti, tm = _blobs(r, 2)
     cfg = dict(backbone="resnet_tiny", img_size=(S, S), verbose=False)
-    for kwargs, match in (({"augmentations_per_image": 2}, "A13"),
-                          ({"config": {**cfg, "fused_run": True}}, "A18"),
+    for kwargs, match in (({"config": {**cfg, "fused_run": True}}, "A18"),
                           ({"config": {**cfg, "metrics_log": "x.jsonl"}},
-                           "A16")):
+                           "A16"),
+                          ({"config": {**cfg, "encoder_checkpoint": "e.pt"}},
+                           "A14")):
         kw = {"config": cfg, **kwargs}
         with pytest.raises(NotImplementedError, match=match):
             train_model(None, ti, tm, ti, tm, num_epochs=1, device="cpu",
                         **kw)
-    with pytest.raises(NotImplementedError, match="A12"):
-        train_model(None, ["a.png"], ["b.png"], ["a.png"], ["b.png"],
-                    device="cpu", config=cfg)
     with pytest.raises(NotImplementedError, match="A2"):
         get_engine({**cfg, "reparam_in_train": True}, device="cpu")
 
