@@ -13,8 +13,7 @@ names (``{name}.pt``), which ``segtpu.models.torch_convert
 with the JAX package's keys.
 
 Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP item: ``tta`` and ``predict_tiled`` (A19), ``export`` (A20),
-``load_pretrained_encoder`` (A14).
+ROADMAP item: ``tta`` and ``predict_tiled`` (A19), ``export`` (A20).
 """
 
 from __future__ import annotations
@@ -31,6 +30,7 @@ from segtpu_torch.data.loader import DeviceDataLoader
 from segtpu_torch.data.preprocess import (_round_u8, load_canonical_images,
                                           normalize_canonical)
 from segtpu_torch.infer.predict import predict_proba
+from segtpu_torch.models.torch_convert import load_pretrained
 from segtpu_torch.ops.resize import resize_area
 from segtpu_torch.train.engine import TrainState, get_engine
 from segtpu_torch.train.loop import _materialize, _to_canonical, quick_train
@@ -268,6 +268,17 @@ class Segmenter:
         raise NotImplementedError("export needs the port of "
                                   "segtpu/infer/export.py (ROADMAP A20)")
 
-    def load_pretrained_encoder(self, checkpoint_path: str):
-        raise NotImplementedError("load_pretrained_encoder is not ported "
-                                  "yet (ROADMAP A14)")
+    def load_pretrained_encoder(self, checkpoint_path: str) -> "Segmenter":
+        """pretrained=True: the config's seed's fresh init with a local
+        torchvision checkpoint's encoder laid over it
+        (advanced_models.py:73-139), and a fresh optimizer at the config's
+        learning rate and weight decay."""
+        model = load_pretrained(
+            self.engine.build_model(),
+            torch.Generator().manual_seed(int(self.config.get("seed", 0))),
+            checkpoint_path, kind="torchvision")
+        opt = self.engine.make_optimizer(
+            model, float(self.config.get("learning_rate", 1e-3)),
+            float(self.config.get("weight_decay", 1e-5)))
+        self.state = TrainState(model, opt)
+        return self

@@ -1,13 +1,16 @@
-"""ResNet encoders for the U-Net, NCHW/channels_last PyTorch.
+"""Encoders for the U-Net, NCHW/channels_last PyTorch.
 
-Port of ``segtpu/models/backbones.py`` for the backbones of the port's
-path: ``resnet34`` and the test-scale ``resnet_tiny`` (one BasicBlock per
-stage, same channel plan). The grayscale stem is the plain 7×7/s2 conv;
-the JAX package's ``stem_s2d`` inference rewrite is not ported (ROADMAP).
+Port of ``segtpu/models/backbones.py``: ``resnet34`` (BasicBlock),
+``resnet50`` (Bottleneck), ``densenet121`` and the test-scale
+``resnet_tiny`` (one BasicBlock per stage, resnet34's channel plan). The
+grayscale stem is the plain 7×7/s2 conv; the JAX package's ``stem_s2d``
+inference rewrite is not ported (ROADMAP A2).
 
 Module names follow the reference/torchvision naming (``input_conv``,
-``bn1``, ``enc1.0.conv1``, ``enc2.0.downsample.0``, …) so a reference
-checkpoint loads with ``strict=True``.
+``bn1``, ``enc1.0.conv1``, ``enc1.0.conv3``, ``enc2.0.downsample.0``;
+``features.norm0``, ``features.denseblock1.denselayer1.conv1``,
+``features.transition1.conv``) so a reference checkpoint loads with
+``strict=True``.
 
 Every BatchNorm is ``BatchNorm2d`` below: ``nn.BatchNorm2d`` with flax's
 train-mode update of the running variance.
@@ -18,6 +21,7 @@ Returns the 5 skip features (x1..x5) at strides /2, /4, /8, /16, /32.
 from __future__ import annotations
 
 import contextlib
+from collections import OrderedDict
 from typing import List
 
 import torch
@@ -28,10 +32,17 @@ from segtpu_torch import resolve_device
 
 BACKBONE_CHANNELS = {
     "resnet34": (64, 64, 128, 256, 512),
+    "resnet50": (64, 256, 512, 1024, 2048),
+    "densenet121": (64, 256, 512, 1024, 1024),
     # Test-scale stub: resnet34's stride/channel plan, one block per stage.
     "resnet_tiny": (64, 64, 128, 256, 512),
 }
-RESNET_BLOCKS = {"resnet34": (3, 4, 6, 3), "resnet_tiny": (1, 1, 1, 1)}
+RESNET_BLOCKS = {"resnet34": (3, 4, 6, 3), "resnet50": (3, 4, 6, 3),
+                 "resnet_tiny": (1, 1, 1, 1)}
+# The ResNets built from Bottleneck blocks (the others: BasicBlock).
+BOTTLENECK = frozenset({"resnet50"})
+# densenet121: layers per dense block and the growth rate.
+DENSENET_BLOCKS, DENSENET_GROWTH = (6, 12, 24, 16), 32
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -146,6 +157,37 @@ class BasicBlock(nn.Module):
         return F.relu(y + residual)
 
 
+class Bottleneck(nn.Module):
+    """ResNet-50 bottleneck block (1×1 → 3×3(stride) → 1×1·4), with a
+    projection when the stride or the channels change (so ``enc1.0``
+    projects 64 → 256 at stride 1)."""
+    EXPANSION = 4
+
+    def __init__(self, cin: int, width: int, stride: int = 1, *,
+                 device="cuda", dtype=torch.float32):
+        super().__init__()
+        kw = dict(device=resolve_device(device), dtype=dtype)
+        cout = width * self.EXPANSION
+        self.conv1 = nn.Conv2d(cin, width, 1, bias=False, **kw)
+        self.bn1 = BatchNorm2d(width, **kw)
+        self.conv2 = nn.Conv2d(width, width, 3, stride, 1, bias=False, **kw)
+        self.bn2 = BatchNorm2d(width, **kw)
+        self.conv3 = nn.Conv2d(width, cout, 1, bias=False, **kw)
+        self.bn3 = BatchNorm2d(cout, **kw)
+        self.downsample = None
+        if stride != 1 or cin != cout:
+            self.downsample = nn.Sequential(
+                nn.Conv2d(cin, cout, 1, stride, bias=False, **kw),
+                BatchNorm2d(cout, **kw))
+
+    def forward(self, x):
+        residual = x if self.downsample is None else self.downsample(x)
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = F.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(y))
+        return F.relu(y + residual)
+
+
 def resnet_features(m: nn.Module, x: torch.Tensor) -> List[torch.Tensor]:
     """x1..x5 of a module holding ``input_conv``, ``bn1`` and
     ``enc1``..``enc4`` (a ``ResNetEncoder``, or the U-Net, which holds the
@@ -162,27 +204,129 @@ def resnet_features(m: nn.Module, x: torch.Tensor) -> List[torch.Tensor]:
 class ResNetEncoder(nn.Module):
     """ResNet encoder with grayscale stem; ``forward`` yields x1..x5."""
 
-    def __init__(self, block_counts, *, device="cuda", dtype=torch.float32):
+    def __init__(self, block_counts, bottleneck: bool = False, *,
+                 device="cuda", dtype=torch.float32):
         super().__init__()
         dev = resolve_device(device)
         kw = dict(device=dev, dtype=dtype)
+        block = Bottleneck if bottleneck else BasicBlock
+        expansion = Bottleneck.EXPANSION if bottleneck else 1
         self.input_conv = nn.Conv2d(1, 64, 7, 2, 3, bias=False, **kw)
         self.bn1 = BatchNorm2d(64, **kw)
         cin = 64
         for li, (width, n) in enumerate(zip((64, 128, 256, 512),
                                             block_counts)):
-            blocks = [BasicBlock(cin if bi == 0 else width, width,
-                                 2 if (bi == 0 and li > 0) else 1, **kw)
-                      for bi in range(n)]
+            blocks = []
+            for bi in range(n):
+                blocks.append(block(cin, width,
+                                    2 if (bi == 0 and li > 0) else 1, **kw))
+                cin = width * expansion
             self.add_module(f"enc{li + 1}", nn.Sequential(*blocks))
-            cin = width
 
     def forward(self, x) -> List[torch.Tensor]:
         return resnet_features(self, x)
 
 
+class DenseLayer(nn.Module):
+    """DenseNet layer: BN→ReLU→1×1(4k)→BN→ReLU→3×3(k), concatenated
+    after its input."""
+
+    def __init__(self, cin: int, growth: int = DENSENET_GROWTH, *,
+                 device="cuda", dtype=torch.float32):
+        super().__init__()
+        kw = dict(device=resolve_device(device), dtype=dtype)
+        self.norm1 = BatchNorm2d(cin, **kw)
+        self.conv1 = nn.Conv2d(cin, 4 * growth, 1, bias=False, **kw)
+        self.norm2 = BatchNorm2d(4 * growth, **kw)
+        self.conv2 = nn.Conv2d(4 * growth, growth, 3, padding=1, bias=False,
+                               **kw)
+
+    def forward(self, x):
+        y = self.conv1(F.relu(self.norm1(x)))
+        y = self.conv2(F.relu(self.norm2(y)))
+        return torch.cat([x, y], dim=1)
+
+
+class Transition(nn.Module):
+    """BN→ReLU→1×1 conv→2×2/2 average pool."""
+
+    def __init__(self, cin: int, cout: int, *, device="cuda",
+                 dtype=torch.float32):
+        super().__init__()
+        kw = dict(device=resolve_device(device), dtype=dtype)
+        self.norm = BatchNorm2d(cin, **kw)
+        self.conv = nn.Conv2d(cin, cout, 1, bias=False, **kw)
+
+    def forward(self, x):
+        return F.avg_pool2d(self.conv(F.relu(self.norm(x))), 2, stride=2)
+
+
+class _DenseFeatures(nn.Module):
+    """The reference's ``features`` of densenet121 that its encoder runs:
+    ``norm0``, ``denseblock1..4`` and ``transition1..3`` (the 3-channel
+    ``conv0`` and the final ``norm5`` are unused, so absent)."""
+
+    def __init__(self, *, device="cuda", dtype=torch.float32):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.norm0 = BatchNorm2d(64, **kw)
+        ch = 64
+        for bi, n in enumerate(DENSENET_BLOCKS):
+            self.add_module(f"denseblock{bi + 1}", nn.Sequential(
+                OrderedDict((f"denselayer{li + 1}",
+                             DenseLayer(ch + li * DENSENET_GROWTH, **kw))
+                            for li in range(n))))
+            ch += n * DENSENET_GROWTH
+            if bi < len(DENSENET_BLOCKS) - 1:
+                self.add_module(f"transition{bi + 1}",
+                                Transition(ch, ch // 2, **kw))
+                ch //= 2
+
+
+def densenet_features(m: nn.Module, x: torch.Tensor) -> List[torch.Tensor]:
+    """x1..x5 of a module holding ``input_conv`` and ``features`` (a
+    ``DenseNetEncoder``, or the U-Net): x1 is the stem conv's output with
+    no BatchNorm and no ReLU; x2..x5 are the raw dense-block outputs (no
+    ``norm5``), as the reference extracts them."""
+    x1 = m.input_conv(x)
+    f = m.features
+    y = _maxpool_3x3_s2(F.relu(f.norm0(x1)))
+    feats = [x1]
+    for bi in range(1, len(DENSENET_BLOCKS) + 1):
+        y = getattr(f, f"denseblock{bi}")(y)
+        feats.append(y)
+        if bi < len(DENSENET_BLOCKS):
+            y = getattr(f, f"transition{bi}")(y)
+    return feats
+
+
+class DenseNetEncoder(nn.Module):
+    """densenet121 encoder with grayscale stem (block config (6, 12, 24,
+    16), growth 32); ``forward`` yields x1..x5 with 64, 256, 512, 1024 and
+    1024 channels."""
+
+    def __init__(self, *, device="cuda", dtype=torch.float32):
+        super().__init__()
+        kw = dict(device=resolve_device(device), dtype=dtype)
+        self.input_conv = nn.Conv2d(1, 64, 7, 2, 3, bias=False, **kw)
+        self.features = _DenseFeatures(**kw)
+
+    def forward(self, x) -> List[torch.Tensor]:
+        return densenet_features(self, x)
+
+
 def make_encoder(backbone: str, *, device="cuda",
-                 dtype=torch.float32) -> ResNetEncoder:
+                 dtype=torch.float32) -> nn.Module:
+    if backbone == "densenet121":
+        return DenseNetEncoder(device=device, dtype=dtype)
     if backbone not in RESNET_BLOCKS:
-        raise ValueError(f"Unknown or not yet ported backbone: {backbone}")
-    return ResNetEncoder(RESNET_BLOCKS[backbone], device=device, dtype=dtype)
+        raise ValueError(f"Unknown backbone: {backbone}")
+    return ResNetEncoder(RESNET_BLOCKS[backbone], backbone in BOTTLENECK,
+                         device=device, dtype=dtype)
+
+
+def encoder_features(backbone: str):
+    """The function that computes x1..x5 from the modules of
+    ``make_encoder(backbone)``, wherever they sit."""
+    return densenet_features if backbone == "densenet121" else \
+        resnet_features

@@ -1,8 +1,9 @@
 """Flax variable trees → the port's ``state_dict``.
 
 The inverse of ``segtpu/models/torch_convert.py::load_reference_checkpoint``
-for the port's backbones: takes the JAX model's ``params`` and
-``batch_stats`` (nested dicts of arrays) and returns a ``state_dict`` that
+for every backbone (resnet34, resnet50, densenet121, resnet_tiny): takes
+the JAX model's ``params`` and ``batch_stats`` (nested dicts of arrays)
+and returns a ``state_dict`` that
 ``UNetWithBackbone.load_state_dict(..., strict=True)`` accepts.
 
 Layout conversions:
@@ -12,7 +13,11 @@ Layout conversions:
   (flax's transposed conv does not flip, torch's does);
 - BatchNorm scale/bias (params) and mean/var (batch_stats) →
   weight/bias/running_mean/running_var (+ ``num_batches_tracked`` = 0);
-- ``attention{l}/BatchNorm_{0,1,2}`` → ``W_g.1``, ``W_x.1``, ``psi.1``.
+- ``attention{l}/BatchNorm_{0,1,2}`` → ``W_g.1``, ``W_x.1``, ``psi.1``;
+- ResNet ``layer{i}_{b}`` → ``enc{i}.{b}``, its ``down_conv``/``down_bn``
+  → ``downsample.0``/``.1``; densenet121's ``norm0``,
+  ``denseblock{i}/denselayer{j}`` and ``transition{i}`` → the same names
+  under ``features.``.
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ import numpy as np
 import torch
 
 from segtpu_torch import resolve_device
-from segtpu_torch.models.backbones import RESNET_BLOCKS
+from segtpu_torch.models.backbones import DENSENET_BLOCKS, RESNET_BLOCKS
 
 
 def conv_weight(kernel) -> np.ndarray:
@@ -40,8 +45,8 @@ def state_dict_from_jax(params: Dict, batch_stats: Dict,
                         use_attention: bool = True, *,
                         device="cuda") -> Dict[str, torch.Tensor]:
     """The port's state_dict for a JAX ``UNetWithBackbone``'s variables."""
-    if backbone not in RESNET_BLOCKS:
-        raise ValueError(f"Unknown or not yet ported backbone: {backbone}")
+    if backbone not in RESNET_BLOCKS and backbone != "densenet121":
+        raise ValueError(f"Unknown backbone: {backbone}")
     dev = resolve_device(device)
     sd: Dict[str, np.ndarray] = {}
 
@@ -59,16 +64,36 @@ def state_dict_from_jax(params: Dict, batch_stats: Dict,
 
     ep, es = params["encoder"], batch_stats["encoder"]
     conv("input_conv", ep["input_conv"])
-    bn("bn1", ep["bn1"], es["bn1"])
-    for li, n in enumerate(RESNET_BLOCKS[backbone]):
-        for bi in range(n):
-            fp, tk = f"layer{li + 1}_{bi}", f"enc{li + 1}.{bi}"
-            for c, b in (("conv1", "bn1"), ("conv2", "bn2")):
-                conv(f"{tk}.{c}", ep[fp][c])
-                bn(f"{tk}.{b}", ep[fp][b], es[fp][b])
-            if "down_conv" in ep[fp]:
-                conv(f"{tk}.downsample.0", ep[fp]["down_conv"])
-                bn(f"{tk}.downsample.1", ep[fp]["down_bn"], es[fp]["down_bn"])
+    if backbone == "densenet121":
+        bn("features.norm0", ep["norm0"], es["norm0"])
+        for bi, n in enumerate(DENSENET_BLOCKS):
+            blk, sblk = ep[f"denseblock{bi + 1}"], es[f"denseblock{bi + 1}"]
+            for li in range(n):
+                name = f"denselayer{li + 1}"
+                lp, ls = blk[name], sblk[name]
+                tk = f"features.denseblock{bi + 1}.{name}"
+                for c, b in (("conv1", "norm1"), ("conv2", "norm2")):
+                    bn(f"{tk}.{b}", lp[b], ls[b])
+                    conv(f"{tk}.{c}", lp[c])
+            if bi < len(DENSENET_BLOCKS) - 1:
+                tp, ts = ep[f"transition{bi + 1}"], es[f"transition{bi + 1}"]
+                tk = f"features.transition{bi + 1}"
+                bn(f"{tk}.norm", tp["norm"], ts["norm"])
+                conv(f"{tk}.conv", tp["conv"])
+    else:
+        bn("bn1", ep["bn1"], es["bn1"])
+        for li, n in enumerate(RESNET_BLOCKS[backbone]):
+            for bi in range(n):
+                fp, tk = f"layer{li + 1}_{bi}", f"enc{li + 1}.{bi}"
+                for c, b in (("conv1", "bn1"), ("conv2", "bn2"),
+                             ("conv3", "bn3")):
+                    if c in ep[fp]:
+                        conv(f"{tk}.{c}", ep[fp][c])
+                        bn(f"{tk}.{b}", ep[fp][b], es[fp][b])
+                if "down_conv" in ep[fp]:
+                    conv(f"{tk}.downsample.0", ep[fp]["down_conv"])
+                    bn(f"{tk}.downsample.1", ep[fp]["down_bn"],
+                       es[fp]["down_bn"])
 
     for lvl in (4, 3, 2, 1):
         conv(f"upconv{lvl}", params[f"upconv{lvl}"], conv_transpose_weight)

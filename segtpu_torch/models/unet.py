@@ -33,7 +33,7 @@ from segtpu_torch import resolve_device
 from segtpu_torch.kernels.fused_conv import upsample2x_concat
 from segtpu_torch.models.attention import AttentionGate, ChannelAttention
 from segtpu_torch.models.backbones import (BACKBONE_CHANNELS, BatchNorm2d,
-                                           make_encoder, resnet_features)
+                                           encoder_features, make_encoder)
 from segtpu_torch.ops.resize import resize_bilinear
 
 # Per level (upconv out, decoder out), then the attention-gate
@@ -41,6 +41,10 @@ from segtpu_torch.ops.resize import resize_bilinear
 _DECODER_PLAN = {
     "resnet34": dict(up=(256, 128, 64, 32), dec=(256, 128, 64, 32),
                      att_int=(128, 64, 32, 32), head_in=32),
+    "resnet50": dict(up=(1024, 512, 256, 64), dec=(1024, 512, 256, 64),
+                     att_int=(512, 256, 128, 32), head_in=64),
+    "densenet121": dict(up=(512, 256, 128, 64), dec=(512, 256, 128, 64),
+                        att_int=(256, 128, 64, 32), head_in=64),
 }
 _DECODER_PLAN["resnet_tiny"] = _DECODER_PLAN["resnet34"]
 
@@ -90,7 +94,8 @@ class _UpConv2x(nn.ConvTranspose2d):
 
 
 class UNetWithBackbone(nn.Module):
-    """Attention U-Net over a ResNet encoder.
+    """Attention U-Net over a resnet34, resnet50, densenet121 or
+    resnet_tiny encoder.
 
     Input NCHW (B, 1, H, W) in channels_last memory; output logits
     (B, n_classes, H, W), or ``(logits, features)`` with
@@ -108,8 +113,7 @@ class UNetWithBackbone(nn.Module):
         if fuse not in ("none", "kernel"):
             raise ValueError(f"fuse must be 'none' or 'kernel'; got {fuse!r}")
         if backbone not in _DECODER_PLAN:
-            raise ValueError(f"Unknown or not yet ported backbone: "
-                             f"{backbone}")
+            raise ValueError(f"Unknown backbone: {backbone}")
         dev = resolve_device(device)
         kw = dict(device=dev, dtype=dtype)
         self.n_classes = n_classes
@@ -124,6 +128,7 @@ class UNetWithBackbone(nn.Module):
         # the encoder's modules sit at the top level (reference key names)
         for name, mod in make_encoder(backbone, **kw).named_children():
             self.add_module(name, mod)
+        self._encoder_features = encoder_features(backbone)
         plan = _DECODER_PLAN[backbone]
         enc_ch = BACKBONE_CHANNELS[backbone]
         d_ch = enc_ch[4]
@@ -189,7 +194,7 @@ class UNetWithBackbone(nn.Module):
                 and h % min(32, h) == 0 and w % min(32, w) == 0)
 
     def forward(self, x: torch.Tensor, return_features: bool = False):
-        x1, x2, x3, x4, x5 = resnet_features(self, x)
+        x1, x2, x3, x4, x5 = self._encoder_features(self, x)
         d = x5
         for lvl, skip in zip((4, 3, 2, 1), (x4, x3, x2, x1)):
             upconv = getattr(self, f"upconv{lvl}")

@@ -147,8 +147,7 @@ def test_parts_left_out_raise_with_their_roadmap_item():
     for call, item in (
             (lambda: seg.predict_proba(imgs[:1], tta=True), "A19"),
             (lambda: seg.predict_tiled(imgs[0]), "A19"),
-            (lambda: seg.export("x"), "A20"),
-            (lambda: seg.load_pretrained_encoder("x.pt"), "A14")):
+            (lambda: seg.export("x"), "A20")):
         with pytest.raises(NotImplementedError, match=item):
             call()
     with pytest.raises(RuntimeError, match="not fitted"):

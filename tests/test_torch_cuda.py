@@ -227,6 +227,38 @@ def test_upsample_kernel_at_resnet50_widths(cuda, dtype):
     _upsample_close(cuda, (1, 2, 3, 2048, 1024, 1024), dtype, seed=9)
 
 
+# The gate's (Cg, Cx, F) and the fused upsample's (Cin, Co, Cs) at the
+# levels resnet50's and densenet121's U-Nets give them (levels 4..1 and
+# 3..1 at B=16, 512²; segtpu_torch/models/unet.py's decoder plan):
+# densenet121 has Cx = 2·Cg and Cs = 2·Co. Ragged: B=2 at 5×7 pixels.
+ENCODER_GATES = {"resnet50": [(1024, 1024, 512), (512, 512, 256),
+                              (256, 256, 128), (64, 64, 32)],
+                 "densenet121": [(512, 1024, 256), (256, 512, 128),
+                                 (128, 256, 64), (64, 64, 32)]}
+ENCODER_UPSAMPLES = {"resnet50": [(1024, 512, 512), (512, 256, 256),
+                                  (256, 64, 64)],
+                     "densenet121": [(512, 256, 512), (256, 128, 256),
+                                     (128, 64, 64)]}
+GATE_WIDTHS = [(b, w) for b, ws in ENCODER_GATES.items() for w in ws]
+UPSAMPLE_WIDTHS = [(b, w) for b, ws in ENCODER_UPSAMPLES.items() for w in ws]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("backbone,widths", GATE_WIDTHS,
+                         ids=[f"{b}-" + "-".join(map(str, w))
+                              for b, w in GATE_WIDTHS])
+def test_gate_kernel_at_encoder_widths(cuda, backbone, widths, dtype):
+    _gate_close(cuda, (2, 5, 7, *widths), dtype, seed=10)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("backbone,widths", UPSAMPLE_WIDTHS,
+                         ids=[f"{b}-" + "-".join(map(str, w))
+                              for b, w in UPSAMPLE_WIDTHS])
+def test_upsample_kernel_at_encoder_widths(cuda, backbone, widths, dtype):
+    _upsample_close(cuda, (2, 5, 7, *widths), dtype, seed=11)
+
+
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
 def test_gate_and_upsample_at_ragged_shapes(cuda, dtype):
     # M = 15 pixels, Cg 8, Cx 12, F 8; then Cs != Co and 4·Co = 48, not a

@@ -39,7 +39,8 @@ def test_source_imports_nothing_of_jax(path):
 
 def test_sources_cover_every_port_module():
     """The glob above reaches the kernel wrappers, the bench tools, the
-    training path and the data layer, so the two tests here check them
+    training path, the data layer, the pretrained-encoder converter, the
+    K-fold harness, the drivers and the CLI, so the tests here check them
     too."""
     names = {str(p.relative_to(ROOT)) for p in SOURCES}
     for mod in ("kernels/attention_gate.py", "kernels/fused_conv.py",
@@ -48,19 +49,47 @@ def test_sources_cover_every_port_module():
                 "train/engine.py", "train/loop.py", "losses/registry.py",
                 "api.py", "data/discovery.py", "data/io.py",
                 "data/native.py", "data/augment.py", "data/preprocess.py",
-                "data/loader.py", "ops/resize.py"):
+                "data/loader.py", "ops/resize.py", "models/torch_convert.py",
+                "core/config.py", "eval/folds.py",
+                "eval/cross_validation.py", "experiments/common.py",
+                "experiments/model_configuration.py",
+                "experiments/loss_comparison.py",
+                "experiments/augmentation_amount.py", "cli.py"):
         assert f"segtpu_torch/{mod}" in names
     assert "chip_smoke.py" in names
 
 
+def _module_level_roots(path: Path):
+    """The roots imported by the module's own body, outside any function
+    or class."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in tree.body:
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=[str(p.relative_to(ROOT)) for p in SOURCES])
+def test_source_imports_no_sklearn_and_matplotlib_only_inside_functions(
+        path):
+    """The card's machine has neither package: scikit-learn is imported
+    nowhere, matplotlib only inside the plotting functions."""
+    assert "sklearn" not in set(_imported_roots(path))
+    assert "matplotlib" not in set(_module_level_roots(path))
+
+
 def test_package_imports_with_jax_blocked():
-    """Every module of the port imports with jax, flax and segtpu made
-    unimportable."""
+    """Every module of the port imports with jax, flax, segtpu,
+    scikit-learn and matplotlib made unimportable."""
     mods = sorted(".".join(p.relative_to(ROOT).with_suffix("").parts)
                   .removesuffix(".__init__")
                   for p in (ROOT / "segtpu_torch").rglob("*.py"))
+    blocked = sorted(FORBIDDEN | {"sklearn", "matplotlib"})
     code = ("import importlib, sys\n"
-            f"for m in {sorted(FORBIDDEN)!r}: sys.modules[m] = None\n"
+            f"for m in {blocked!r}: sys.modules[m] = None\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "print('ok', len(sys.modules))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

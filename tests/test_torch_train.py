@@ -480,9 +480,7 @@ def test_train_model_leaves_out_what_is_not_ported():
     cfg = dict(backbone="resnet_tiny", img_size=(S, S), verbose=False)
     for kwargs, match in (({"config": {**cfg, "fused_run": True}}, "A18"),
                           ({"config": {**cfg, "metrics_log": "x.jsonl"}},
-                           "A16"),
-                          ({"config": {**cfg, "encoder_checkpoint": "e.pt"}},
-                           "A14")):
+                           "A16")):
         kw = {"config": cfg, **kwargs}
         with pytest.raises(NotImplementedError, match=match):
             train_model(None, ti, tm, ti, tm, num_epochs=1, device="cpu",
