@@ -93,7 +93,33 @@ it, or when any phase fails:
    artefacts read back, every model on the card, 4 gate launches per
    validation forward of the attention configurations; a ``grid {...}``
    line with the seconds per configuration and per fold;
-10. one JSON line ``{"kernels": [...]}`` (gate and upsample launches
+10. fold-parallel training and forward selection on the data phase's
+   TIFFs: (m1) ``CrossValidator`` with the grid's resnet34 attention
+   configuration (128², B=4, BCE, random_state 41, 2 folds, 2 epochs, 1
+   augmentation per image), sequential, then ``fold_parallel=True`` with
+   the ``stream`` and the ``vmap`` strategy, cuDNN deterministic in all
+   three: each fold's final IoU and loss within 1e-2 of the sequential
+   run's; ``vmap``'s per-epoch losses within 1e-2 of ``stream``'s (its
+   thresholded metrics reported: in float32 the two strategies round
+   differently and a 2-epoch model's IoU swings with that), and the two
+   strategies equal in float64 on the card (weights within 1e-9 of their
+   scale, without the gate kernel); one device→host fetch per ``stream``
+   window (per epoch under ``vmap``), exactly 4 gate launches per
+   validation forward, every fold's model on the card, one fold's epoch
+   profiled (the device's busy share); (m3) the sequential run's
+   first fold with ``metrics_log`` and ``tensorboard_dir``, read back
+   (one record and one event per epoch, the epoch's metrics), and
+   ``core.profiling.trace`` around a validation forward, whose trace must
+   name the gate kernel; a ``folds {...}`` line with seconds per CV, per
+   fold and per epoch and the peak memory of each mode. (m2) the
+   forward-selection driver's base config (resnet34, no attention, 128²,
+   B=2, focal, seed 42) cut to ``horizontal_flip`` and ``random_crop``,
+   one round, 3 grouped folds, 2 epochs, sequential and fold-parallel:
+   no base name on both sides of a fold, ``results.json`` read back,
+   scores finite in [0, 1], 3 sets × 3 folds trainings per mode, every
+   model on the card, the upsample launches ``_fused_level`` predicts
+   (0); a ``selection {...}`` line;
+11. one JSON line ``{"kernels": [...]}`` (gate and upsample launches
    count every path above; their sums over the other encoders' shapes
    under ``encoders``), then the card line, then the result line
    ``{"ok": true, "device": {...}}``.
@@ -936,38 +962,57 @@ def _gate_on(model, on):
     model.fuse_gate = on
 
 
+class _GateCalls:
+    """Records the inputs and output (copies) of every attention-gate
+    kernel call the models make while it is entered."""
+
+    def __enter__(self):
+        import segtpu_torch.models.attention as attention
+        self.calls, self._kernel = [], attention.attention_gate
+        kernel, calls = self._kernel, self.calls
+
+        def record(*args):
+            out = kernel(*args)
+            calls.append(([a.clone() for a in args], out.clone()))
+            return out
+
+        attention.attention_gate = record
+        return self
+
+    def __exit__(self, *exc):
+        import segtpu_torch.models.attention as attention
+        attention.attention_gate = self._kernel
+
+    def against_plain(self, tol: float):
+        """Each recorded output against ``attention_gate_plain`` on its
+        inputs (in f32): per call its (B, H, W, Cg, Cx, F), max_abs_err and
+        the error's share of ``tol`` times the output's scale (floored at
+        1)."""
+        from segtpu_torch.kernels.attention_gate import attention_gate_plain
+        torch.cuda.synchronize()
+        shapes, errs, shares = [], [], []
+        for args, out in self.calls:
+            ref = attention_gate_plain(*[a.float() for a in args])
+            err = (out.float() - ref).abs().max().item()
+            shapes.append([*out.shape[:3], args[0].shape[-1], out.shape[-1],
+                           args[2].shape[-1]])
+            errs.append(err)
+            shares.append(err / (tol * max(1.0, ref.abs().max().item())))
+        return shapes, errs, shares
+
+
 def _gate_at_path_inputs(seg, images) -> dict:
     """Check (i): every gate call of one ``predict_proba`` forward of
     ``images`` (all of them in one forward, so the gate runs at B = their
     count on four levels): the kernel's output there against the plain
     version on the same inputs, within TOL_BF16 of the output's scale."""
-    import segtpu_torch.models.attention as attention
-    from segtpu_torch.kernels.attention_gate import attention_gate_plain
-    kernel, calls = attention.attention_gate, []
-
-    def record(*args):
-        out = kernel(*args)
-        calls.append(([a.clone() for a in args], out.clone()))
-        return out
-
-    attention.attention_gate = record
-    try:
+    with _GateCalls() as rec:
         seg.predict_proba(images)
-    finally:
-        attention.attention_gate = kernel
-    torch.cuda.synchronize()
-    shapes, errs, shares, ok = [], [], [], len(calls) == 4
-    for args, out in calls:
-        ref = attention_gate_plain(*[a.float() for a in args])
-        err = (out.float() - ref).abs().max().item()
-        tol = TOL_BF16 * max(1.0, ref.abs().max().item())
-        ok = ok and err <= tol and out.shape[0] == len(images)
-        shapes.append([*out.shape[:3], args[0].shape[-1], out.shape[-1],
-                       args[2].shape[-1]])
-        errs.append(err)
-        shares.append(err / tol)
+    shapes, errs, shares = rec.against_plain(TOL_BF16)
+    ok = len(rec.calls) == 4 and all(s[0] == len(images) for s in shapes) \
+        and max(shares) <= 1.0
     check(ok, f"data (i): attention_gate at the predict forward's inputs, "
-          f"{len(calls)} calls (want 4), (B, H, W, Cg, Cx, F) {shapes}: "
+          f"{len(rec.calls)} calls (want 4), (B, H, W, Cg, Cx, F) {shapes}: "
           f"max_abs_err {errs}, {shares} of the tolerance ({TOL_BF16:.3g} "
           f"of each output's scale)")
     return dict(gate_path_shapes=shapes, gate_path_max_abs_err=errs,
@@ -1663,6 +1708,648 @@ def phase_grid(device="cuda", size=128) -> dict:
     return res
 
 
+# (m): fold-parallel CV, forward selection and observability on the data
+# phase's TIFFs. (m1): the grid's resnet34 attention configuration (its
+# base config cut by GRID_CUTS), sequential, then fold-parallel with each
+# strategy, cuDNN deterministic in all three so that only the strategy
+# tells them apart. (m2): the forward-selection driver's base config
+# (segtpu_torch/experiments/forward_selection.py), cut to 2 candidates, one
+# round, 3 grouped folds and 2 epochs, sequential and fold-parallel.
+FOLD_CONFIG = dict(GRID_BASE, **GRID_CUTS, name="fold-parallel",
+                   backbone="resnet34", use_attention=True, batch_size=4)
+FOLD_STRATEGIES = ("stream", "vmap")
+TOL_FOLDS = 1e-2       # the JAX package's bar (tests/test_fold_parallel.py)
+# one (m1) fold's training images (14 originals, 1 augmentation each) and
+# validation images, for the profiled epoch
+FOLD_SIZES = (28, 14)
+SELECTION_CANDIDATES = ("horizontal_flip", "random_crop")
+SELECTION_OVERRIDES = {"num_epochs": 2}
+SELECTION_FOLDS = 3
+
+
+class _EvalForwards:
+    """Records the batch size and model of every validation forward
+    (``TrainEngine._eval_step_vec``) while it is entered."""
+
+    def __enter__(self):
+        from segtpu_torch.train.engine import TrainEngine
+        self.calls, self._real = [], TrainEngine._eval_step_vec
+        real, calls = self._real, self.calls
+
+        def recorded(engine, state, images, masks):
+            calls.append((images.shape[0], state.model))
+            return real(engine, state, images, masks)
+
+        TrainEngine._eval_step_vec = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from segtpu_torch.train.engine import TrainEngine
+        TrainEngine._eval_step_vec = self._real
+
+
+def _observed_fold(real_train_model, root):
+    """``train_model`` that gives its first call ``metrics_log`` and
+    ``tensorboard_dir`` under ``root`` (check (m3))."""
+    import os
+    seen = []
+
+    def run(**kw):
+        if not seen:
+            kw["config"] = dict(kw["config"],
+                                metrics_log=os.path.join(root, "m.jsonl"),
+                                tensorboard_dir=os.path.join(root, "tb"))
+        out = real_train_model(**kw)
+        seen.append(out)
+        return out
+    return run, seen
+
+
+def _check_logs(root, result) -> dict:
+    """(m3): one JSONL record and one TensorBoard event per epoch, each
+    with that epoch's metrics, every record parsed."""
+    import os
+    from segtpu_torch.core.tboard import read_scalar_events
+    recs = [json.loads(line) for line in open(os.path.join(root, "m.jsonl"))]
+    (name,) = os.listdir(os.path.join(root, "tb"))
+    events = list(read_scalar_events(os.path.join(root, "tb", name)))
+    epochs = len(result["val_metrics"])
+    same = all(
+        r["kind"] == "epoch" and r["epoch"] == e
+        and all(r[f"val_{k}"] == v for k, v in vm.items())
+        and all(r[f"train_{k}"] == v for k, v in tm.items())
+        and ev[1] == e and abs(ev[2]["val/iou"] - vm["iou"]) <= 1e-6
+        for e, (r, ev, vm, tm) in enumerate(zip(
+            recs, events, result["val_metrics"], result["train_metrics"])))
+    check(len(recs) == len(events) == epochs and same,
+          f"folds (m3): {len(recs)} JSONL records and {len(events)} "
+          f"TensorBoard events for {epochs} epochs, each the epoch's "
+          f"metrics: {same}")
+    return dict(jsonl_records=len(recs), tb_events=len(events))
+
+
+def _check_trace(model, images, device) -> dict:
+    """(m3): ``core.profiling.trace`` around one validation forward
+    writes a trace file that names the gate kernel."""
+    import os
+    import tempfile
+    from segtpu_torch.core.profiling import annotate, trace
+    with tempfile.TemporaryDirectory(prefix="segtpu-torch-trace-") as d:
+        with trace(d), annotate("validation-forward"), \
+                torch.inference_mode():
+            model.eval()(images.to(device))
+            torch.cuda.synchronize()
+        (name,) = os.listdir(d)
+        text = open(os.path.join(d, name)).read()
+        size = os.path.getsize(os.path.join(d, name))
+    named = [k for k in PORT_KERNELS[:2] if k in text]
+    check(bool(named) and "validation-forward" in text,
+          f"folds (m3): the trace of a validation forward ({size} bytes) "
+          f"names the gate kernel ({named}) and the annotation")
+    return dict(trace_bytes=size, trace_gate_kernels=named)
+
+
+def _fold_gates_vs_plain(forwards, gates, cfg) -> dict:
+    """(m1): every gate call of one fold-parallel CV's validation
+    forwards (f32, at (m1)'s batch and at the validation set's remainder
+    batch, on the four levels at 128², 8² to 64²) against the plain
+    version on the same inputs, within TOL_F32 of the output's scale."""
+    shapes, errs, shares = gates.against_plain(TOL_F32)
+    share = max(shares, default=float("inf"))
+    batches = sorted({b for b, _ in forwards})
+    f32 = all(out.dtype == torch.float32 for _, out in gates.calls)
+    n = len(gates.calls)
+    ok = n == 4 * len(forwards) > 0 and f32 and len(batches) == 2 \
+        and share <= 1.0
+    worst = {}
+    for s, e in zip(shapes, errs):
+        worst[str(s)] = max(e, worst.get(str(s), 0.0))
+    check(ok, f"folds (m1): attention_gate at {n} calls of "
+          f"{len(forwards)} validation forwards (batches {batches}; want "
+          f"the batch size and a remainder), f32 {f32}, against the plain "
+          f"version: worst {share:.3g} of the tolerance ({TOL_F32} of "
+          f"each output's scale); (B, H, W, Cg, Cx, F): max_abs_err {worst}")
+    gates.calls.clear()     # else the copies count in the timed runs' peak
+    return dict(gate_vs_plain_calls=n, gate_vs_plain_batches=batches,
+                gate_vs_plain_max_abs_err=worst,
+                gate_vs_plain_tol_share=share)
+
+
+# (m1)'s float32 stacked-step check, TF32 off (``main`` turns it off for
+# the whole run). The forward and backward of every fold
+# under vmap against the fold's own model, from the same weights and
+# batch: vmap's grouped convolutions sum in another order, so a fold's
+# loss within 1e-3 of itself; the gradients carry that reordering through
+# the BatchNorms' backward, whose sums cancel heavily this early in
+# training (the same check at this config on the CPU, float32: up to
+# 1.2e-2 of a tensor's gradient norm), so each tensor's gradient within
+# 0.1 of its norm (floored at 1e-2 of the largest tensor's). A fault of
+# the strategy (another fold's statistics or weights, a wrong layout)
+# moves a loss or a tensor's gradient by order 1. The BatchNorms' running
+# statistics, moved by 0.1 of batch statistics that carry the reordering:
+# within 1e-3 of their norm. The functional optimizer and the fold's torch
+# optimizer given the same gradients compute the same update in another
+# order: weights within 1e-6 of their scale. Validation probabilities of
+# the strategy's evaluation model (one model, loaded fold by fold, its
+# gates refolded) against each fold's own model holding the same weights:
+# both run the same kernels on weights 1e-6 apart, so TOL_F32.
+TOL_STACKED_F32 = dict(loss=1e-3, grad=1e-1, stats=1e-3, weights=1e-6,
+                       probs=TOL_F32)
+
+
+def _norm_rel(a, b) -> float:
+    """‖a − b‖ / ‖b‖ over the tensor lists ``a`` and ``b`` together."""
+    num = sum(float((x - y).double().square().sum()) for x, y in zip(a, b))
+    return (num / sum(float(y.double().square().sum()) for y in b)) ** 0.5
+
+
+def _f32_stacked_step(cfg, device) -> dict:
+    """(m1): ``vmap``'s float32 training step (``_stacked_step``) and
+    validation model against each fold's own, at (m1)'s config: two
+    steps at its batch size, one learning rate per fold, then validation
+    forwards at the batch size and a remainder of 2; bars
+    TOL_STACKED_F32."""
+    from segtpu_torch.train import engine as engine_mod
+    from segtpu_torch.train.optim import set_learning_rate
+    dev = torch.device(device)
+    engine = engine_mod.get_engine(cfg, device=device)
+    k, lr, wd = cfg["n_splits"], cfg["learning_rate"], cfg["weight_decay"]
+    lrs = [lr / (f + 1) for f in range(k)]
+    states = [engine.init_state(torch.Generator().manual_seed(SEED + 1000 * f),
+                                lrs[f], wd) for f in range(k)]
+    stack = engine.stack_folds(states, wd)
+    grads, real_step = [], engine_mod.functional_step
+
+    def recorded(name, params, g, *a, **kw):
+        grads.append({n: t.detach().clone() for n, t in g.items()})
+        return real_step(name, params, g, *a, **kw)
+
+    gen = torch.Generator(dev).manual_seed(SEED)
+    s = cfg["img_size"][0]
+    loss_at = engine_mod.METRIC_KEYS.index("loss")
+    err = dict.fromkeys(TOL_STACKED_F32, 0.0)
+
+    engine_mod.functional_step = recorded
+    try:
+        for b in (cfg["batch_size"],) * 2:
+            x = torch.rand(k, b, 1, s, s, generator=gen, device=dev)
+            y = (x > 0.7).float()
+            own = []
+            for f, st in enumerate(states):
+                st.model.train()
+                st.optimizer.zero_grad(set_to_none=True)
+                own.append(float(engine._micro_step(st.model, x[f], y[f],
+                                                    1.0)[loss_at]))
+            vec = engine._stacked_step(stack, x, y, torch.tensor(
+                lrs, dtype=torch.float64, device=dev))
+            for f, st in enumerate(states):
+                err["loss"] = max(err["loss"], abs(float(vec[f, loss_at])
+                                                   - own[f]) / abs(own[f]))
+                named = dict(st.model.named_parameters())
+                floor = 1e-2 * max(float(p.grad.norm())
+                                   for p in named.values())
+                err["grad"] = max(err["grad"], max(
+                    float((grads[-1][n][f] - p.grad).norm())
+                    / max(float(p.grad.norm()), floor)
+                    for n, p in named.items()))
+                # the optimizer check: the fold's own optimizer steps on the
+                # gradients the stacked step used
+                for n, p in named.items():
+                    p.grad = grads[-1][n][f].clone()
+                set_learning_rate(st.optimizer, lrs[f])
+                st.optimizer.step()
+        val = torch.rand(k, 6, 1, s, s, generator=gen, device=dev)
+        _f32_fold_models(engine, stack, states, val, err)
+    finally:
+        engine_mod.functional_step = real_step
+    check(all(err[n] <= TOL_STACKED_F32[n] for n in err),
+          f"folds (m1): vmap's float32 step vs each fold's own (B = "
+          f"{cfg['batch_size']}, two steps; TF32 "
+          f"{torch.backends.cudnn.allow_tf32}): "
+          + ", ".join(f"{n} {err[n]:.3g} (tol {TOL_STACKED_F32[n]})"
+                      for n in err))
+    return dict(f32_stacked_step_err=err)
+
+
+def _f32_fold_models(engine, stack, states, val, err) -> None:
+    """Part of ``_f32_stacked_step``: each fold's running statistics and
+    weights in the stack against its own model's, then validation
+    probabilities (batches of 4 and 2) of ``stack.eval_model`` loaded
+    with the fold against the fold's model given the same statistics;
+    the largest errors into ``err``."""
+    if stack.eval_model is None:
+        stack.eval_model = engine.build_model()
+    for f, st in enumerate(states):
+        bufs = {n: t for n, t in st.model.named_buffers()
+                if n.endswith(("running_mean", "running_var"))}
+        err["stats"] = max(err["stats"], _norm_rel(
+            [stack.buffers[n][f] for n in bufs], list(bufs.values())))
+        named = dict(st.model.named_parameters())
+        scale = max(float(p.detach().abs().max()) for p in named.values())
+        err["weights"] = max(err["weights"], max(
+            float((stack.params[n][f] - p.detach()).abs().max())
+            for n, p in named.items()) / scale)
+        with torch.no_grad():                 # the same statistics too
+            for n, t in bufs.items():
+                t.copy_(stack.buffers[n][f])
+        probs = []
+        for model in (engine.load_fold(stack, f, stack.eval_model),
+                      st.model):
+            model.eval()
+            with torch.no_grad(), engine.autocast():
+                probs.append(torch.cat([torch.sigmoid(model(v).float())
+                                        for v in val[f].split(4)]))
+        err["probs"] = max(err["probs"],
+                           float((probs[0] - probs[1]).abs().max()))
+
+
+def _fold_epoch_profile(cfg, device) -> dict:
+    """One fold's epoch (``run_fold_epoch_async``: training epoch and
+    validation pass, enqueued with no fetch) at (m1)'s sizes, profiled
+    twice after one unprofiled call: the device's busy share of the
+    span, so 1 − busy is the share in which the card waited for the
+    host."""
+    from segtpu_torch.train.engine import get_engine
+    dev = torch.device(device)
+    engine = get_engine(cfg, device=device)
+    state = engine.init_state(torch.Generator().manual_seed(SEED),
+                              cfg["learning_rate"], cfg["weight_decay"])
+    gen = torch.Generator(dev).manual_seed(SEED)
+    s = cfg["img_size"][0]
+    n_train, n_val = FOLD_SIZES
+    ti = torch.rand(n_train, 1, s, s, generator=gen, device=dev)
+    vi = torch.rand(n_val, 1, s, s, generator=gen, device=dev)
+    tm, vm = (ti > 0.7).float(), (vi > 0.7).float()
+    prof = _profile_calls(lambda: engine.run_fold_epoch_async(
+        state, ti, tm, vi, vm, cfg["learning_rate"], gen,
+        cfg["batch_size"]), 2)
+    return dict(train_images=n_train, val_images=n_val,
+                busy_share=prof["profile_busy_share"],
+                busy_ms=prof["profile_busy_ms"],
+                port_kernels_ms=prof["profile_port_kernels_ms"],
+                top=prof["profile_top"])
+
+
+def _float64_folds(validator, cfg, device) -> dict:
+    """(m1): the ``stream`` and the ``vmap`` strategy on the same folds,
+    the same augmented frames and seeds, in float64 on the card (without
+    the gate kernel, which takes f32 and bf16): the two must compute the
+    same training, weights within 1e-9 of their scale, the same LR
+    histories and best epochs, per-epoch metrics within 1e-5 (float32
+    totals). In float32 only the losses can be held together: both
+    strategies round differently (grouped convolutions), and Adam's
+    first, sign-like steps on near-zero gradients turn that into weights
+    that differ where they do not move the loss."""
+    from segtpu_torch.data.augment import CellAugmenter
+    from segtpu_torch.eval import fold_parallel as fp
+    from segtpu_torch.train.engine import get_engine
+    from segtpu_torch.train.loop import _materialize
+    ci, cm = validator._canonical(cfg["img_size"])
+    arrays, seeds = [], []
+    for k, (tr, va) in enumerate(validator.create_cv_folds()):
+        seed = int(cfg.get("seed", 0)) + 1000 * k
+        ti, tm = CellAugmenter(cfg["augmentations_per_image"], seed=seed,
+                               device=device).augment_training_data(
+            ci[tr], cm[tr])
+        arrays.append(tuple(t.double() for t in _materialize(
+            ti, tm, device=device) + _materialize(ci[va], cm[va],
+                                                  device=device)))
+        seeds.append(seed)
+    f64 = dict(cfg, fuse_gate=False)
+    engine = get_engine(f64, device=device)
+    build = engine.build_model
+    engine.build_model = lambda: build().double()
+    out, secs = {}, {}
+    for strategy in FOLD_STRATEGIES:
+        t0 = time.perf_counter()
+        out[strategy] = fp.train_folds_parallel(
+            arrays, f64, engine=engine, seeds=seeds, strategy=strategy,
+            device=device)
+        torch.cuda.synchronize()
+        secs[strategy] = time.perf_counter() - t0
+
+    def rel(a, b):
+        keys = [n for n, t in a.items() if t.is_floating_point()]
+        scale = max(float(a[n].abs().max()) for n in keys)
+        return max(float((a[n] - b[n]).abs().max()) for n in keys) / scale
+
+    w_err = max(rel(s_["state"].model.state_dict(),
+                    v_["state"].model.state_dict())
+                for s_, v_ in zip(out["stream"], out["vmap"]))
+    m_err = max(abs(sm[key] - vm[key])
+                for s_, v_ in zip(out["stream"], out["vmap"])
+                for part in ("train_metrics", "val_metrics")
+                for sm, vm in zip(s_[part], v_[part]) for key in sm)
+    same = all(s_["lr_history"] == v_["lr_history"]
+               and s_["best_epoch"] == v_["best_epoch"]
+               and len(s_["val_metrics"]) == len(v_["val_metrics"])
+               for s_, v_ in zip(out["stream"], out["vmap"]))
+    double = all(p.dtype == torch.float64 for r in out["vmap"]
+                 for p in r["state"].model.parameters())
+    check(same and double and w_err <= 1e-9 and m_err <= 1e-5,
+          f"folds (m1): vmap equals stream in float64 on {device}: weights "
+          f"{w_err:.3g} of their scale, metrics {m_err:.3g}, the same LR "
+          f"histories and best epochs: {same}")
+    return dict(weights_rel_err=w_err, metrics_err=m_err, seconds=secs,
+                val_iou={s_: [[m["iou"] for m in r["val_metrics"]]
+                              for r in o] for s_, o in out.items()})
+
+
+def phase_folds(device="cuda", size=128) -> dict:
+    """(m1) and (m3): ``CrossValidator`` on the data phase's TIFFs,
+    sequential (its first fold with ``metrics_log`` and
+    ``tensorboard_dir``), then ``fold_parallel=True`` with ``stream`` and
+    with ``vmap``. Checks: each fold's final IoU and loss within TOL_FOLDS
+    of the sequential run's (``vmap``: of ``stream``'s), one fetch per
+    ``stream`` window (one per epoch under ``vmap``), exactly 4 gate
+    launches per validation forward, every fold's model on the card, the
+    logs and the trace. Returns the ``folds`` line's dict."""
+    import tempfile
+    from segtpu_torch.eval import cross_validation
+    from segtpu_torch.eval import fold_parallel as fp
+    from segtpu_torch.kernels import launch_counts, reset_launch_counts
+    dev = torch.device(device)
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    runs, res = {}, {}
+    real_train, real_cv = (cross_validation.train_model,
+                           cross_validation.cv_train_folds_parallel)
+    real_window = fp.dispatch_window
+    try:
+        with tempfile.TemporaryDirectory(prefix="segtpu-torch-folds-") as root:
+            write_data_dir(root)
+            cfg = dict(FOLD_CONFIG, data_dir=root, img_size=(size, size))
+            # untimed: the first CV at these shapes (cuDNN's deterministic
+            # choices, first allocations), run by ``stream``, every gate
+            # call of its validation forwards recorded
+            with _EvalForwards() as fwd, _GateCalls() as gates:
+                cross_validation.CrossValidator(
+                    root, "W", n_splits=cfg["n_splits"],
+                    random_state=cfg["random_state"],
+                    augmentations_per_image=cfg["augmentations_per_image"],
+                    verbose=False, fold_parallel=True,
+                    device=device).cross_validate_single_model(
+                        None, dict(cfg, fold_parallel_strategy="stream"))
+            res.update(_fold_gates_vs_plain(fwd.calls, gates, cfg))
+            for mode in ("sequential",) + FOLD_STRATEGIES:
+                par = mode != "sequential"
+                v = cross_validation.CrossValidator(
+                    root, "W", n_splits=cfg["n_splits"],
+                    random_state=cfg["random_state"],
+                    augmentations_per_image=cfg["augmentations_per_image"],
+                    verbose=False, fold_parallel=par, device=device)
+                outs, windows = [], []
+
+                def cv_recorded(*a, **kw):
+                    out = real_cv(*a, **kw)
+                    outs.extend(out)
+                    return out
+
+                def window_counted(*a, **kw):
+                    windows.append(a[5])
+                    return real_window(*a, **kw)
+
+                if par:
+                    cross_validation.cv_train_folds_parallel = cv_recorded
+                    fp.dispatch_window = window_counted
+                else:
+                    cross_validation.train_model, outs = _observed_fold(
+                        real_train, root)
+                v._canonical(cfg["img_size"])    # decoded before the clock
+                fp.reset_fetch_count()
+                reset_launch_counts()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                with _EvalForwards() as fwd:
+                    t0 = time.perf_counter()
+                    r = v.cross_validate_single_model(None, dict(
+                        cfg, fold_parallel_strategy=mode))
+                    torch.cuda.synchronize()
+                    secs = time.perf_counter() - t0
+                cross_validation.train_model = real_train
+                cross_validation.cv_train_folds_parallel = real_cv
+                fp.dispatch_window = real_window
+                epochs = sum(len(o["val_metrics"]) for o in outs)
+                runs[mode] = dict(
+                    result=r, outs=outs, seconds=secs, epochs=epochs,
+                    fetches=fp.fetch_count(), windows=windows,
+                    forwards=len(fwd.calls),
+                    gate=launch_counts()["attention_gate"],
+                    upsample=launch_counts()["upsample2x_concat"],
+                    peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+                if mode == "sequential":
+                    res.update(_check_logs(root, outs[0]))
+            res["epoch_profile"] = _fold_epoch_profile(cfg, device)
+            res["float64"] = _float64_folds(v, cfg, device)
+            res.update(_f32_stacked_step(cfg, device))
+            model = runs["stream"]["outs"][0]["state"].model
+            images = torch.rand(cfg["batch_size"], 1, size, size,
+                                generator=torch.Generator().manual_seed(
+                                    SEED)).contiguous(
+                memory_format=torch.channels_last)
+            res.update(_check_trace(model, images, dev))
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+        cross_validation.train_model = real_train
+        cross_validation.cv_train_folds_parallel = real_cv
+        fp.dispatch_window = real_window
+
+    k = cfg["n_splits"]
+    folds = {m: run["result"]["fold_results"] for m, run in runs.items()}
+    err = max(abs(a[key] - b[key]) for a, b in zip(folds["stream"],
+                                                   folds["sequential"])
+              for key in ("iou", "loss"))
+    check(len(folds["stream"]) == k and err <= TOL_FOLDS,
+          f"folds (m1): stream's {k} folds' final IoU and loss within "
+          f"{TOL_FOLDS} of sequential's: max error {err:.3g}")
+    res["max_err_stream_vs_sequential"] = err
+    # vmap against stream: in float32, every epoch's training and
+    # validation loss; the thresholded metrics are reported, and the two
+    # strategies are held to each other in float64 (_float64_folds)
+    pairs = [(s_, v_) for so, vo in zip(runs["stream"]["outs"],
+                                        runs["vmap"]["outs"])
+             for key in ("train_metrics", "val_metrics")
+             for s_, v_ in zip(so[key], vo[key])]
+    loss_err = max(abs(s_["loss"] - v_["loss"]) for s_, v_ in pairs)
+    check(len(runs["vmap"]["outs"]) == k and len(pairs) == 2 * runs[
+        "stream"]["epochs"] and loss_err <= TOL_FOLDS,
+          f"folds (m1): vmap's per-epoch training and validation losses, "
+          f"float32, within {TOL_FOLDS} of stream's: max error "
+          f"{loss_err:.3g}")
+    res["max_loss_err_vmap_vs_stream"] = loss_err
+    res["max_metric_err_vmap_vs_stream"] = {
+        key: max(abs(s_[key] - v_[key]) for s_, v_ in pairs)
+        for key in ("iou", "f1", "precision", "recall", "accuracy")}
+    for mode, run in runs.items():
+        on_card = all(p.device.type == dev.type for o in run["outs"]
+                      for p in o["state"].model.parameters())
+        check(len(run["outs"]) == k and on_card,
+              f"folds (m1): {mode}: every one of {len(run['outs'])} fold "
+              f"models on {device}")
+        check(run["gate"] == 4 * run["forwards"] > 0
+              and run["upsample"] == 0,
+              f"folds (m1): {mode}: attention_gate launched {run['gate']} "
+              f"times, 4 per validation forward of {run['forwards']}; "
+              f"upsample {run['upsample']} (no level fused at {size}², "
+              f"B={cfg['batch_size']})")
+    for mode in FOLD_STRATEGIES:
+        run = runs[mode]
+        want = len(run["windows"]) if mode == "stream" else \
+            max(len(o["val_metrics"]) for o in run["outs"])
+        check(run["fetches"] == want > 0,
+              f"folds (m1): {mode}: {run['fetches']} device→host fetches, "
+              f"one per {'window' if mode == 'stream' else 'epoch'}: "
+              f"{want} (windows {run['windows']})")
+    res.update(
+        config={k2: cfg[k2] for k2 in ("backbone", "use_attention",
+                                       "batch_size", "img_size", "loss_fn",
+                                       "n_splits", "num_epochs",
+                                       "augmentations_per_image",
+                                       "random_state")},
+        cudnn_deterministic=True,
+        seconds_per_cv={m: r["seconds"] for m, r in runs.items()},
+        seconds_per_fold={m: r["seconds"] / k for m, r in runs.items()},
+        seconds_per_epoch={m: r["seconds"] / max(r["epochs"], 1)
+                           for m, r in runs.items()},
+        fold_epochs={m: r["epochs"] for m, r in runs.items()},
+        fetches={m: r["fetches"] for m, r in runs.items()},
+        windows=runs["stream"]["windows"],
+        validation_forwards={m: r["forwards"] for m, r in runs.items()},
+        peak_gib={m: r["peak_gib"] for m, r in runs.items()},
+        fold_iou={m: [f["iou"] for f in fs] for m, fs in folds.items()},
+        launches={"attention_gate": sum(r["gate"] for r in runs.values()),
+                  "upsample2x_concat": sum(r["upsample"]
+                                           for r in runs.values())},
+        clock="host s, synchronised")
+    print("folds " + json.dumps(res), flush=True)
+    return res
+
+
+def phase_selection(device="cuda", size=128) -> dict:
+    """(m2): ``run_augmentation_selection_experiment`` with the driver's
+    base config cut by SELECTION_*, sequential and fold-parallel, on the
+    data phase's TIFFs. Checks: grouped folds with no base name on both
+    sides, ``results.json`` read back with the reference's keys, scores
+    finite in [0, 1], 3 sets × 3 folds trainings per mode, every model
+    on the card, and the upsample launches ``_fused_level`` predicts for
+    the validation forwards' batches. Returns the ``selection`` line's
+    dict."""
+    import os
+    import tempfile
+    from segtpu_torch.eval import fold_parallel as fp
+    from segtpu_torch.experiments import forward_selection as fs
+    from segtpu_torch.kernels import launch_counts, reset_launch_counts
+    dev = torch.device(device)
+    real = (fs.AUGMENTATION_CANDIDATES, fs.group_kfold_split,
+            fs.get_engine, fp.train_folds_parallel)
+    res = {}
+    try:
+        fs.AUGMENTATION_CANDIDATES = {
+            k: v for k, v in real[0].items() if k in SELECTION_CANDIDATES}
+        with tempfile.TemporaryDirectory(prefix="segtpu-torch-sel-") as root:
+            write_data_dir(root)
+            for par in (False, True):
+                mode = "fold_parallel" if par else "sequential"
+                folds, engines, trained, sets = [], [], [], []
+
+                def grouped(names, k):
+                    out = real[1](names, k)
+                    folds.append((list(names), out))
+                    return out
+
+                def engine_of(config, **kw):
+                    e = real[2](config, **kw)
+                    engines.append(e)
+                    return e
+
+                def parallel(arrays, config, **kw):
+                    out = real[3](arrays, config, **kw)
+                    trained.extend(out)
+                    return out
+
+                fs.group_kfold_split, fs.get_engine = grouped, engine_of
+                fp.train_folds_parallel = parallel
+                reset_launch_counts()
+                torch.cuda.synchronize()
+                save = os.path.join(root, mode)
+                with _EvalForwards() as fwd:
+                    t0 = time.perf_counter()
+                    results, _ = fs.run_augmentation_selection_experiment(
+                        data_dir=root, config_overrides=dict(
+                            SELECTION_OVERRIDES, fold_parallel=par),
+                        max_augmentations=1, cv_folds=SELECTION_FOLDS,
+                        quick_evaluation=False, save_root=save,
+                        device=device)
+                    torch.cuda.synchronize()
+                    secs = time.perf_counter() - t0
+                fs.group_kfold_split, fs.get_engine = real[1], real[2]
+                fp.train_folds_parallel = real[3]
+                counts = launch_counts()
+                with open(os.path.join(save, "augmentation_selection_results",
+                                       "results.json")) as f:
+                    back = json.load(f)
+                n_sets = 1 + len(SELECTION_CANDIDATES)
+                leak = [set(names[i] for i in tr) & set(names[i] for i in va)
+                        for names, fl in folds for tr, va in fl]
+                check(len(folds) == n_sets and not any(leak)
+                      and all(len(fl) == SELECTION_FOLDS for _, fl in folds),
+                      f"selection (m2): {mode}: {len(folds)} sets, each "
+                      f"{SELECTION_FOLDS} grouped folds with no base name "
+                      f"in train and validation")
+                scores = [back["baseline_score"], back["final_score"]] + [
+                    s for h in back["selection_history"]
+                    for s in h["candidate_scores"].values()]
+                check(set(back) == {"selected_augmentations", "final_score",
+                                    "baseline_score", "total_improvement",
+                                    "selection_history", "config"}
+                      and all(np.isfinite(scores))
+                      and all(0.0 <= s <= 1.0 for s in scores),
+                      f"selection (m2): {mode}: results.json read back "
+                      f"with the reference's keys, scores finite in "
+                      f"[0, 1]: {[round(s, 4) for s in scores]}")
+                n_train = len(trained) if par else len(engines)
+                check(n_train == n_sets * SELECTION_FOLDS,
+                      f"selection (m2): {mode}: {n_train} trainings, "
+                      f"{n_sets} sets × {SELECTION_FOLDS} folds")
+                # sequential: each fold's model is built by its engine
+                on_card = all(e.device.type == dev.type for e in engines) \
+                    and all(p.device.type == dev.type for o in trained
+                            for p in o["state"].model.parameters())
+                check(on_card, f"selection (m2): {mode}: every model on "
+                      f"{device}")
+                want_ups = sum(len(decoder_shapes(m, b, size)[1])
+                               for b, m in fwd.calls)
+                check(counts["upsample2x_concat"] == want_ups
+                      and counts["attention_gate"] == 0,
+                      f"selection (m2): {mode}: upsample launched "
+                      f"{counts['upsample2x_concat']} times, as "
+                      f"_fused_level predicts for {len(fwd.calls)} "
+                      f"validation forwards: {want_ups}")
+                per_fold = secs / (n_sets * SELECTION_FOLDS)
+                res[mode] = dict(
+                    seconds=secs, seconds_per_set=secs / n_sets,
+                    seconds_per_fold=per_fold, trainings=n_train,
+                    validation_forwards=len(fwd.calls),
+                    selected=back["selected_augmentations"],
+                    baseline_score=back["baseline_score"],
+                    final_score=back["final_score"],
+                    launches=counts)
+    finally:
+        (fs.AUGMENTATION_CANDIDATES, fs.group_kfold_split, fs.get_engine,
+         fp.train_folds_parallel) = real
+    res.update(candidates=list(SELECTION_CANDIDATES),
+               cv_folds=SELECTION_FOLDS, **SELECTION_OVERRIDES,
+               img_size=[size, size], clock="host s, synchronised",
+               launches={k: sum(res[m]["launches"][k]
+                                for m in ("sequential", "fold_parallel"))
+                         for k in ("attention_gate", "upsample2x_concat")})
+    print("selection " + json.dumps(res), flush=True)
+    return res
+
+
 KERNEL_META = {
     "attention_gate": dict(
         source="segtpu_torch/csrc/attention_gate.cu",
@@ -1693,6 +2380,8 @@ def main() -> int:
     encoders = phase_encoders()
     phase_pretrained()
     grid = phase_grid()
+    folds = phase_folds()
+    selection = phase_selection()
     # each kernel's launches on its own main paths: the serving models
     # and the training runs that run it, or the bench entry points for the
     # conv and the pair
@@ -1700,11 +2389,15 @@ def main() -> int:
                 + trained["launches"]["attention_gate"]
                 + loaded["launches"]["attention_gate"]
                 + encoders["launches"]["attention_gate"]
-                + grid["launches"]["attention_gate"],
+                + grid["launches"]["attention_gate"]
+                + folds["launches"]["attention_gate"]
+                + selection["launches"]["attention_gate"],
                 "upsample2x_concat": served["upsample2x_concat"]["launches"]
                 + trained["upsample_launches_no_attention"]
                 + encoders["launches"]["upsample2x_concat"]
-                + grid["launches"]["upsample2x_concat"],
+                + grid["launches"]["upsample2x_concat"]
+                + folds["launches"]["upsample2x_concat"]
+                + selection["launches"]["upsample2x_concat"],
                 "conv3x3_bn_relu": benched["conv3x3_bn_relu"],
                 "conv_pair_bn_relu": benched["conv_pair_bn_relu"]}
 

@@ -14,8 +14,10 @@ Reference parity: cross_validation.py —
 The dataset's canonical uint8 frames are decoded, and resized on
 ``device``, once per ``img_size`` and sliced per fold on the host. Every
 fold trains on ``device`` (default ``cuda``; raises without CUDA unless
-``device='cpu'``). ``fold_parallel=True`` (the JAX package's
-``eval/fold_parallel.py``) is not ported yet (ROADMAP A17).
+``device='cpu'``). With ``fold_parallel=True`` the folds that are not
+resumed train together (``eval/fold_parallel.py``; config
+``fold_parallel_strategy`` picks "stream" or "vmap"), with the same resume
+files and summaries as the sequential path.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import numpy as np
 from segtpu_torch import resolve_device
 from segtpu_torch.data.discovery import load_original_data
 from segtpu_torch.data.preprocess import load_canonical
+from segtpu_torch.eval.fold_parallel import cv_train_folds_parallel
 from segtpu_torch.eval.folds import kfold_split, train_test_split_indices
 from segtpu_torch.train.loop import train_model
 from segtpu_torch.train.optim import ReduceLROnPlateau
@@ -61,10 +64,6 @@ class CrossValidator:
                  augmentations_per_image: int = 3, verbose: bool = True,
                  resume_dir: Optional[str] = None,
                  fold_parallel: bool = False, *, device="cuda"):
-        if fold_parallel:
-            raise NotImplementedError("fold_parallel=True needs the port of "
-                                      "segtpu/eval/fold_parallel.py "
-                                      "(ROADMAP A17)")
         self.device = resolve_device(device)
         self.n_splits = n_splits
         self.random_state = random_state
@@ -74,6 +73,7 @@ class CrossValidator:
         # and a restarted run skips past them (the folds are deterministic
         # given the seed)
         self.resume_dir = resume_dir
+        self.fold_parallel = fold_parallel
 
         self.data = load_original_data(data_dir, image_type)
         self.image_paths = self.data["image_paths"]
@@ -150,8 +150,62 @@ class CrossValidator:
         os.makedirs(self.resume_dir, exist_ok=True)
         return os.path.join(self.resume_dir, f"{name}_fold{fold_idx}.json")
 
+    def _run_folds_parallel(self, config: Dict, cv_folds
+                            ) -> Tuple[List, Dict]:
+        """``_run_folds`` with the folds trained together: resumed folds
+        are loaded, the rest train in one ``cv_train_folds_parallel`` run;
+        the resume files and summaries are the sequential path's."""
+        img_size = tuple(config.get("img_size", (128, 128)))
+        ci, cm = self._canonical(img_size)
+        cv_config = dict(config, img_size=img_size,
+                         seed=int(config.get("seed", 0)))
+
+        results_by_fold: List[Optional[Dict]] = [None] * len(cv_folds)
+        pending, pending_ids = [], []
+        for fold_idx, (tr, va) in enumerate(cv_folds):
+            ckpt = self._fold_ckpt_path(config, fold_idx)
+            if ckpt and os.path.exists(ckpt):
+                with open(ckpt) as f:
+                    results_by_fold[fold_idx] = json.load(f)
+                if self.verbose:
+                    print(f"  Fold {fold_idx + 1}/{self.n_splits}: resumed "
+                          f"(IoU: {results_by_fold[fold_idx]['iou']:.4f})")
+            else:
+                pending.append((tr, va))
+                pending_ids.append(fold_idx)
+
+        if pending:
+            t0 = time.time()
+            outs = cv_train_folds_parallel(
+                ci, cm, pending, cv_config,
+                augmentations_per_image=self.augmentations_per_image,
+                fold_ids=pending_ids, device=self.device)
+            elapsed = time.time() - t0
+            for fold_idx, res in zip(pending_ids, outs):
+                vm = dict(res["final_val_metrics"])
+                vm["training_time"] = elapsed / len(pending)
+                results_by_fold[fold_idx] = vm
+                ckpt = self._fold_ckpt_path(config, fold_idx)
+                if ckpt:
+                    with open(ckpt, "w") as f:
+                        json.dump({k: float(v) for k, v in vm.items()}, f)
+            if self.verbose:
+                ious = " ".join(
+                    f"{results_by_fold[i]['iou']:.4f}" for i in pending_ids)
+                print(f"  Folds {[i + 1 for i in pending_ids]} trained "
+                      f"in parallel ({elapsed:.1f}s): IoU {ious}")
+
+        all_metrics = defaultdict(list)
+        for vm in results_by_fold:
+            for metric, value in vm.items():
+                if metric != "training_time":
+                    all_metrics[metric].append(value)
+        return results_by_fold, _summary(all_metrics)
+
     def _run_folds(self, model_class, config: Dict, cv_folds
                    ) -> Tuple[List, Dict]:
+        if self.fold_parallel:
+            return self._run_folds_parallel(config, cv_folds)
         fold_results = []
         all_metrics = defaultdict(list)
         for fold_idx, (tr, va) in enumerate(cv_folds):

@@ -219,7 +219,7 @@ def main(data_dir: str = "manual_labels", image_type: str = "W",
     """Full two-phase loss comparison
     (loss_function_cross_validation.py:261-392). ``loss_filter``
     optionally restricts to a subset of loss names (smoke runs);
-    ``fold_parallel`` is not ported yet (ROADMAP A17)."""
+    ``fold_parallel`` trains each loss's CV folds together."""
     ts = timestamp()
     save_dir = os.path.join(save_root, f"loss_comparison_{ts}")
     os.makedirs(save_dir, exist_ok=True)

@@ -11,7 +11,6 @@ from __future__ import annotations
 from functools import partial
 
 import torch
-import torch.nn.functional as F
 
 
 def _labels(targets) -> torch.Tensor:
@@ -22,8 +21,11 @@ def _labels(targets) -> torch.Tensor:
 
 
 def _one_hot(t, c, dtype):
-    """(B, H, W) labels → (B, C, H, W) one-hot."""
-    return F.one_hot(t, c).permute(0, 3, 1, 2).to(dtype)
+    """(B, H, W) labels in [0, c) → (B, C, H, W) one-hot, by comparison:
+    ``F.one_hot`` checks the labels' range on the host, a synchronisation
+    that neither ``vmap`` nor a window of epochs with one fetch allows."""
+    classes = torch.arange(c, device=t.device).view(1, c, 1, 1)
+    return (t[:, None] == classes).to(dtype)
 
 
 def softmax_ce_loss(logits, targets):

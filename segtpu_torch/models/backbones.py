@@ -60,7 +60,13 @@ class BatchNorm2d(nn.BatchNorm2d):
     level) is normalised as flax does it, with variance 0: the output is
     the shift, ``running_mean`` moves toward x and ``running_var`` toward
     0. ``F.batch_norm`` refuses that input (its unbiased variance is
-    0/0), so that case takes the formula written out."""
+    0/0), so that case takes the formula written out.
+
+    Under a ``torch.func`` transform (the input is a functorch wrapper, as
+    in the ``vmap`` fold-parallel strategy) a train-mode forward is the
+    formula written out in tensor ops: under ``vmap`` on CUDA torch's
+    fused batch norm refuses a one-channel input (the batching rule hands
+    it a view that is not contiguous)."""
 
     def __init__(self, num_features: int, **kw):
         super().__init__(num_features, **kw)
@@ -78,6 +84,8 @@ class BatchNorm2d(nn.BatchNorm2d):
         n = x.numel() // x.shape[1]
         if n == 1:
             return self._forward_one_value(x)
+        if torch._C._functorch.is_functorch_wrapped_tensor(x):
+            return self._forward_written_out(x)
         # momentum 1 leaves the batch's mean and unbiased variance in the
         # scratch; fold them in with the biased variance (the same op
         # either way, so that a checkpointed re-run saves what the forward
@@ -93,6 +101,29 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.running_var.mul_(1.0 - m).add_(var, alpha=m * (n - 1) / n)
             self.num_batches_tracked.add_(1)
         return out
+
+    def _forward_written_out(self, x):
+        """The train-mode forward in tensor ops: the batch's mean and
+        biased variance per channel (in float32 at least), normalise,
+        scale and shift; the running statistics move as in ``forward``."""
+        xf = x if x.dtype in (torch.float32, torch.float64) else x.float()
+        shape = (1, -1, 1, 1)
+        mean = xf.mean((0, 2, 3))
+        xc = xf - mean.view(shape)
+        var = xc.square().mean((0, 2, 3))
+        out = xc * (torch.rsqrt(var + self.eps) * self.weight).view(shape) \
+            + self.bias.view(shape)
+        if self.update_stats:
+            m = self.momentum
+            with torch.no_grad():
+                # lerp_ as a + m·(b − a), in ops that vmap batches
+                self.running_mean.add_(
+                    mean.to(self.running_mean.dtype) - self.running_mean,
+                    alpha=m)
+                self.running_var.mul_(1.0 - m).add_(
+                    var.to(self.running_var.dtype), alpha=m)
+                self.num_batches_tracked.add_(1)
+        return out.to(x.dtype)
 
     def _forward_one_value(self, x):
         """Train-mode forward of a (1, C, 1, 1) input: x − mean is 0, so

@@ -21,9 +21,13 @@ foreground-prior bias from the masks is then left out, as in the JAX
 package (it is for training from scratch; an explicit
 ``final_bias_prior`` is part of the fresh init).
 
-Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP item: ``metrics_log`` and ``tensorboard_dir`` (A16),
-``fused_run`` (A18).
+``config["metrics_log"]`` (a JSONL path) and ``config["tensorboard_dir"]``
+record every epoch's LR and train/val metrics, as the JAX package's loop
+does (``MetricsLogger`` records of kind "epoch", TensorBoard scalars
+``lr``, ``train/*``, ``val/*`` and, with ``ema_decay``, ``ema_val/*``).
+
+Not ported yet, raising ``NotImplementedError`` that names its ROADMAP
+item: ``fused_run`` (A18).
 """
 
 from __future__ import annotations
@@ -37,6 +41,8 @@ import numpy as np
 import torch
 
 from segtpu_torch import resolve_device
+from segtpu_torch.core.logging import MetricsLogger
+from segtpu_torch.core.tboard import TBWriter
 from segtpu_torch.data.augment import CellAugmenter
 from segtpu_torch.data.loader import DeviceDataLoader
 from segtpu_torch.data.preprocess import load_canonical, normalize_canonical
@@ -123,11 +129,9 @@ def _auto_final_bias(engine: TrainEngine, state: TrainState, config: Dict,
 
 
 def _not_ported(config: Dict) -> None:
-    for key, item in (("metrics_log", "A16"), ("tensorboard_dir", "A16"),
-                      ("fused_run", "A18")):
-        if config.get(key):
-            raise NotImplementedError(
-                f"config {key!r} is not ported yet (ROADMAP {item})")
+    if config.get("fused_run"):
+        raise NotImplementedError(
+            "config 'fused_run' is not ported yet (ROADMAP A18)")
 
 
 def _snapshot(model) -> Dict[str, torch.Tensor]:
@@ -262,76 +266,111 @@ def train_model(model=None, train_images=(), train_masks=(),
     shuffle_gen = torch.Generator(dev).manual_seed(seed + 1)
     train_metrics: Dict = {}
     val_metrics: Dict = {}
-    epoch = 0
-    while epoch < num_epochs:
-        if epoch < warmup_epochs:
-            lr = base_lr * (epoch + 1) / warmup_epochs
-        elif schedule == "cosine":
-            lr = cos_min_lr + 0.5 * (base_lr - cos_min_lr) * (
-                1.0 + math.cos(math.pi * (epoch - warmup_epochs) / cos_span))
-        run_lr = lr
-        state, train_metrics, val_metrics = engine.run_train_and_eval_epoch(
-            state, train_loader, val_loader, lr, shuffle_gen)
-        if ema is not None:
-            with torch.no_grad():
-                for k, p in state.model.named_parameters():
-                    ema[k].mul_(ema_decay).add_(p, alpha=1.0 - ema_decay)
-        train_metrics_history.append(train_metrics)
-        val_metrics_history.append(val_metrics)
+    logger = MetricsLogger(config["metrics_log"]) \
+        if config.get("metrics_log") else None
+    tb = TBWriter(config["tensorboard_dir"]) \
+        if config.get("tensorboard_dir") else None
+    # both handles are closed even when an epoch raises (debug_nans,
+    # device errors): a long-lived caller (a CV sweep) must not
+    # accumulate them
+    try:
+        epoch = 0
+        while epoch < num_epochs:
+            if epoch < warmup_epochs:
+                lr = base_lr * (epoch + 1) / warmup_epochs
+            elif schedule == "cosine":
+                lr = cos_min_lr + 0.5 * (base_lr - cos_min_lr) * (
+                    1.0 + math.cos(math.pi * (epoch - warmup_epochs)
+                                   / cos_span))
+            run_lr = lr
+            state, train_metrics, val_metrics = \
+                engine.run_train_and_eval_epoch(state, train_loader,
+                                                val_loader, lr, shuffle_gen)
+            if ema is not None:
+                with torch.no_grad():
+                    for k, p in state.model.named_parameters():
+                        ema[k].mul_(ema_decay).add_(p, alpha=1.0 - ema_decay)
+            train_metrics_history.append(train_metrics)
+            val_metrics_history.append(val_metrics)
 
-        if debug_nans and not (np.isfinite(train_metrics["loss"])
-                               and np.isfinite(val_metrics["loss"])):
-            raise FloatingPointError(
-                f"Non-finite loss at epoch {epoch+1}: "
-                f"train={train_metrics['loss']}, val={val_metrics['loss']}")
+            if debug_nans and not (np.isfinite(train_metrics["loss"])
+                                   and np.isfinite(val_metrics["loss"])):
+                raise FloatingPointError(
+                    f"Non-finite loss at epoch {epoch+1}: "
+                    f"train={train_metrics['loss']}, "
+                    f"val={val_metrics['loss']}")
 
-        if scheduler is not None and epoch + 1 > warmup_epochs:
-            lr = scheduler.step(val_metrics["iou"])
-        # cosine: the LR the epoch ran at; plateau: the post-step LR
-        # (torch's convention)
-        shown_lr = run_lr if schedule == "cosine" else lr
-        lr_history.append(shown_lr)
+            if scheduler is not None and epoch + 1 > warmup_epochs:
+                lr = scheduler.step(val_metrics["iou"])
+            # cosine: the LR the epoch ran at; plateau: the post-step LR
+            # (torch's convention)
+            shown_lr = run_lr if schedule == "cosine" else lr
+            lr_history.append(shown_lr)
 
-        if verbose:
-            print(f"Epoch {epoch+1:3d}/{num_epochs} - "
-                  f"Train Loss: {train_metrics['loss']:.4f}, "
-                  f"Train IoU: {train_metrics['iou']:.4f}, "
-                  f"Val Loss: {val_metrics['loss']:.4f}, "
-                  f"Val IoU: {val_metrics['iou']:.4f}, "
-                  f"LR: {shown_lr:.6f}")
+            if logger is not None:
+                logger.log({"epoch": epoch, "lr": shown_lr,
+                            **{f"train_{k}": v
+                               for k, v in train_metrics.items()},
+                            **{f"val_{k}": v
+                               for k, v in val_metrics.items()}},
+                           kind="epoch")
+            if tb is not None:
+                tb.add_scalars(
+                    {"lr": shown_lr,
+                     **{f"train/{k}": v for k, v in train_metrics.items()},
+                     **{f"val/{k}": v for k, v in val_metrics.items()}},
+                    step=epoch)
 
-        if val_metrics["iou"] > best_iou:
-            best_iou = val_metrics["iou"]
-            best_state = _snapshot(state.model)
-            best_epoch = epoch
-
-        epoch += 1
-        if early_stopping.step(val_metrics["iou"]):
             if verbose:
-                print(f"Early stopping triggered at epoch {epoch}")
-            break
+                print(f"Epoch {epoch+1:3d}/{num_epochs} - "
+                      f"Train Loss: {train_metrics['loss']:.4f}, "
+                      f"Train IoU: {train_metrics['iou']:.4f}, "
+                      f"Val Loss: {val_metrics['loss']:.4f}, "
+                      f"Val IoU: {val_metrics['iou']:.4f}, "
+                      f"LR: {shown_lr:.6f}")
 
-    time_elapsed = time.time() - start_time
-    if verbose:
-        print(f"Training complete in {time_elapsed // 60:.0f}m "
-              f"{time_elapsed % 60:.0f}s")
-        print(f"Best validation IoU: {best_iou:.4f} at epoch {best_epoch+1}")
+            if val_metrics["iou"] > best_iou:
+                best_iou = val_metrics["iou"]
+                best_state = _snapshot(state.model)
+                best_epoch = epoch
 
-    # the EMA weights are evaluated before the best-weight restore: the
-    # average pairs with the final running BatchNorm statistics
-    ema_extra = {}
-    if ema is not None:
-        ema_model = copy.deepcopy(state.model)
-        with torch.no_grad():
-            for k, p in ema_model.named_parameters():
-                p.copy_(ema[k])
-        ema_state = TrainState(ema_model)
-        ema_val_metrics = engine.run_eval_epoch(ema_state, val_loader)
+            epoch += 1
+            if early_stopping.step(val_metrics["iou"]):
+                if verbose:
+                    print(f"Early stopping triggered at epoch {epoch}")
+                break
+
+        time_elapsed = time.time() - start_time
         if verbose:
-            print(f"EMA(decay={ema_decay}) validation IoU: "
-                  f"{ema_val_metrics['iou']:.4f}")
-        ema_extra = {"ema_state": ema_state,
-                     "ema_val_metrics": ema_val_metrics}
+            print(f"Training complete in {time_elapsed // 60:.0f}m "
+                  f"{time_elapsed % 60:.0f}s")
+            print(f"Best validation IoU: {best_iou:.4f} at epoch "
+                  f"{best_epoch+1}")
+
+        # the EMA weights are evaluated before the best-weight restore:
+        # the average pairs with the final running BatchNorm statistics
+        ema_extra = {}
+        if ema is not None:
+            ema_model = copy.deepcopy(state.model)
+            with torch.no_grad():
+                for k, p in ema_model.named_parameters():
+                    p.copy_(ema[k])
+            ema_state = TrainState(ema_model)
+            ema_val_metrics = engine.run_eval_epoch(ema_state, val_loader)
+            if verbose:
+                print(f"EMA(decay={ema_decay}) validation IoU: "
+                      f"{ema_val_metrics['iou']:.4f}")
+            if tb is not None:
+                tb.add_scalars({f"ema_val/{k}": v
+                                for k, v in ema_val_metrics.items()},
+                               step=max(epoch - 1, 0))
+            ema_extra = {"ema_state": ema_state,
+                         "ema_val_metrics": ema_val_metrics}
+    finally:
+        if logger is not None:
+            logger.close()
+        if tb is not None:
+            tb.close()
 
     if best_state is not None:
         state.model.load_state_dict(best_state)

@@ -9,11 +9,18 @@
   package composes from optax (its ``adam``/``adamw``/``sgd`` chains are
   the torch rules). The learning rate of every group is set per epoch by
   ``set_learning_rate``.
+- ``functional_init`` / ``functional_step``: the same four update rules
+  on tensors with a leading fold axis, one learning rate per fold, for
+  the ``vmap`` fold-parallel strategy; ``load_functional_state`` hands
+  one fold's moments to a ``torch.optim`` optimizer.
 - ``ReduceLROnPlateau`` and ``EarlyStopping``: pure Python, as in the JAX
   package (mode max, relative threshold; patience counter).
 """
 
 from __future__ import annotations
+
+import math
+from typing import Dict
 
 import torch
 
@@ -103,6 +110,108 @@ def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float):
     for group in optimizer.param_groups:
         group["lr"] = float(lr)
     return optimizer
+
+
+# ------------------------------------------------- functional, per fold
+# State keys per optimizer: "exp_avg"/"exp_avg_sq" (adam, adamw, lamb),
+# "momentum_buffer" (sgd with momentum); each {param name: (K, ...)}.
+
+_MOMENTS = {"adam": ("exp_avg", "exp_avg_sq"),
+            "adamw": ("exp_avg", "exp_avg_sq"),
+            "lamb": ("exp_avg", "exp_avg_sq"), "sgd": ("momentum_buffer",)}
+
+
+def functional_init(name: str, params: Dict[str, torch.Tensor]
+                    ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Zero moments for stacked ``params`` (the state of a fresh
+    optimizer)."""
+    if name.lower() not in _MOMENTS:
+        raise ValueError(f"Unknown optimizer '{name}'. "
+                         f"Available: {sorted(_OPTIMIZERS)}")
+    return {key: {n: torch.zeros_like(p) for n, p in params.items()}
+            for key in _MOMENTS[name.lower()]}
+
+
+def _per_fold(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """(K,) → broadcastable against ``like`` (K, ...), in its dtype."""
+    return v.to(like.dtype).view(-1, *([1] * (like.dim() - 1)))
+
+
+@torch.no_grad()
+def functional_step(name: str, params: Dict[str, torch.Tensor],
+                    grads: Dict[str, torch.Tensor],
+                    state: Dict[str, Dict[str, torch.Tensor]],
+                    lrs: torch.Tensor, weight_decay: float, step: int,
+                    b1: float = 0.9, b2: float = 0.999, eps=None,
+                    momentum: float = 0.9, nesterov: bool = False) -> None:
+    """One update of stacked ``params`` in place, fold f at ``lrs[f]``
+    (float64), ``step`` the update's 1-based count: the rules of
+    ``make_optimizer(name)``, written as torch's single-tensor
+    implementations compute them (Adam's moments by ``lerp_`` and
+    ``addcmul_``, bias corrections in float64, coupled L2 for adam and
+    sgd, decoupled for adamw)."""
+    name = name.lower()
+    wd = float(weight_decay)
+    if name in ("adam", "adamw"):
+        eps = 1e-8 if eps is None else eps
+        bc1, bc2 = 1 - b1 ** step, 1 - b2 ** step
+        for n, p in params.items():
+            g, m, v = grads[n], state["exp_avg"][n], state["exp_avg_sq"][n]
+            if name == "adamw":
+                p.mul_(_per_fold(1 - lrs * wd, p))
+            elif wd:
+                g = g.add(p, alpha=wd)
+            m.lerp_(g, 1 - b1)
+            v.mul_(b2).addcmul_(g, g, value=1 - b2)
+            denom = (v.sqrt() / math.sqrt(bc2)).add_(eps)
+            p.add_(-_per_fold(lrs / bc1, p) * m / denom)
+    elif name == "sgd":
+        for n, p in params.items():
+            g = grads[n].add(p, alpha=wd) if wd else grads[n]
+            if momentum:
+                buf = state["momentum_buffer"][n]
+                if step == 1:
+                    buf.copy_(g)
+                else:
+                    buf.mul_(momentum).add_(g)
+                g = g.add(buf, alpha=momentum) if nesterov else buf
+            p.add_(-_per_fold(lrs, p) * g)
+    elif name == "lamb":
+        eps = 1e-6 if eps is None else eps
+        for n, p in params.items():
+            g, m, v = grads[n], state["exp_avg"][n], state["exp_avg_sq"][n]
+            m.mul_(b1).add_(g, alpha=1 - b1)
+            v.mul_(b2).addcmul_(g, g, value=1 - b2)
+            u = (m / (1 - b1 ** step)) / (
+                torch.sqrt(v / (1 - b2 ** step)) + eps)
+            u.add_(p, alpha=wd)
+            p_norm = torch.linalg.vector_norm(p.flatten(1), dim=1)
+            u_norm = torch.linalg.vector_norm(u.flatten(1), dim=1)
+            trust = torch.where((p_norm == 0) | (u_norm == 0),
+                                torch.ones_like(p_norm), p_norm / u_norm)
+            p.sub_(u * _per_fold(trust, p) * _per_fold(lrs, p))
+    else:
+        raise ValueError(f"Unknown optimizer '{name}'. "
+                         f"Available: {sorted(_OPTIMIZERS)}")
+
+
+def load_functional_state(optimizer: torch.optim.Optimizer, name: str,
+                          model: torch.nn.Module,
+                          state: Dict[str, Dict[str, torch.Tensor]],
+                          k: int, step: int) -> None:
+    """Fold ``k``'s moments after ``step`` updates into ``optimizer`` (made
+    by ``make_optimizer(name)`` over ``model``'s parameters), so that it
+    continues that fold's training."""
+    if step == 0:
+        return
+    name = name.lower()
+    for n, p in model.named_parameters():
+        st = {key: state[key][n][k].clone() for key in state}
+        if name in ("adam", "adamw"):
+            st["step"] = torch.tensor(float(step))
+        elif name == "lamb":
+            st["step"] = step
+        optimizer.state[p] = st
 
 
 class ReduceLROnPlateau:

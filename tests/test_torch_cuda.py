@@ -354,3 +354,48 @@ def test_production_transform_on_the_card_matches_the_cpu(cuda, name):
         same, moved = t.apply(mask.to(cuda), mask.to(cuda),
                               {k: v.to(cuda) for k, v in params.items()})
         assert torch.equal(same, moved)
+
+
+def test_stream_window_fetches_once_and_syncs_nowhere_else(cuda):
+    """One ``stream`` window of two tiny folds (resnet_tiny with attention,
+    64², 2 epochs each, the gate kernel in every validation pass) under
+    ``torch.cuda.set_sync_debug_mode("error")``: no operation of the
+    window synchronises with the host, except its one device→host copy
+    of the totals."""
+    from segtpu_torch.eval import fold_parallel as fp
+    from segtpu_torch.train.engine import get_engine
+
+    engine = get_engine({"backbone": "resnet_tiny", "use_attention": True,
+                         "loss_fn": "bce"}, device=cuda)
+    gen = torch.Generator(cuda).manual_seed(0)
+    arrays = [(torch.rand(5, 1, 64, 64, generator=gen, device=cuda),
+               (torch.rand(5, 1, 64, 64, generator=gen, device=cuda) > 0.7)
+               .float(),
+               torch.rand(3, 1, 64, 64, generator=gen, device=cuda),
+               (torch.rand(3, 1, 64, 64, generator=gen, device=cuda) > 0.7)
+               .float()) for _ in range(2)]
+    states = [engine.init_state(torch.Generator().manual_seed(s), 1e-3,
+                                1e-5) for s in (0, 1000)]
+    gens = [torch.Generator(cuda).manual_seed(s + 1) for s in (0, 1000)]
+    live, lrs = [0, 1], [1e-3, 1e-3]
+
+    def window(h):
+        pending, snaps, _ = fp.dispatch_window(
+            [engine] * 2, states, arrays, gens, live, h, lrs, 2)
+        return fp._fetch([t for pj in pending for k in live
+                          for t in pj[k]])
+
+    window(1)     # first calls: the kernel's build, cuDNN's choices
+    torch.cuda.synchronize()
+    fp.reset_fetch_count()
+    launched = launch_counts()["attention_gate"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        totals = window(2)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert fp.fetch_count() == 1
+    assert totals.device.type == "cpu" and totals.shape == (8, 6)
+    assert torch.isfinite(totals).all()
+    # 2 folds × 2 epochs × 2 validation batches (3 images at B=2) × 4 gates
+    assert launch_counts()["attention_gate"] - launched == 32

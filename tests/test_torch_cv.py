@@ -6,8 +6,8 @@ that notes what the harness asked for (the folds, as indices into the
 dataset, and the per-fold config, optimizer and scheduler) and returns
 metrics made from those indices, so both harnesses must agree exactly:
 the same folds, configs, scheduler arguments, summaries and resume files.
-Then one real run of the port's harness (resnet_tiny, 32², 2 folds, 1
-epoch).
+Then real runs of the port's harness (resnet_tiny, 32², 2 folds),
+sequential and with ``fold_parallel=True``.
 """
 
 import json
@@ -180,8 +180,21 @@ def test_quick_helpers_match_jax(monkeypatch, data_dir):
 
 
 def test_fold_parallel_is_not_ported(data_dir):
-    with pytest.raises(NotImplementedError, match="A17"):
-        cv.CrossValidator(data_dir, fold_parallel=True, device="cpu")
+    """``fold_parallel=True`` is ported now: the harness trains the folds
+    together and agrees with the sequential harness on the same folds
+    within the JAX package's bar (tests/test_fold_parallel.py)."""
+    cfg = {"name": "fp", "backbone": "resnet_tiny", "img_size": (S, S),
+           "num_epochs": 1, "batch_size": 4, "loss_fn": "bce"}
+    kw = dict(data_dir=data_dir, image_type="W", n_splits=2,
+              random_state=3, augmentations_per_image=1, verbose=False,
+              device="cpu")
+    seq = cv.CrossValidator(**kw).cross_validate_single_model(None, cfg)
+    par = cv.CrossValidator(fold_parallel=True,
+                            **kw).cross_validate_single_model(None, cfg)
+    assert par["cv_summary"].keys() == seq["cv_summary"].keys()
+    for key in ("iou_mean", "loss_mean"):
+        assert par["cv_summary"][key] == pytest.approx(
+            seq["cv_summary"][key], abs=1e-2)
 
 
 def test_cross_validator_trains_for_real(data_dir):

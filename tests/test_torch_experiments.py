@@ -22,6 +22,7 @@ from segtpu import cli as jax_cli
 from segtpu.core import config as jax_config
 from segtpu.eval import cross_validation as jax_cv
 from segtpu.experiments import augmentation_amount as jax_aug
+from segtpu.experiments import forward_selection as jax_fs
 from segtpu.experiments import loss_comparison as jax_loss
 from segtpu.experiments import model_configuration as jax_mc
 from segtpu_torch import cli
@@ -29,6 +30,7 @@ from segtpu_torch.core import config
 from segtpu_torch.data import make_synthetic_dataset
 from segtpu_torch.eval import cross_validation as cv
 from segtpu_torch.experiments import augmentation_amount as aug
+from segtpu_torch.experiments import forward_selection as fs
 from segtpu_torch.experiments import loss_comparison as loss
 from segtpu_torch.experiments import model_configuration as mc
 from segtpu_torch.experiments.common import to_jsonable
@@ -184,37 +186,55 @@ def test_drivers_draw_their_figures(monkeypatch, data_dir, tmp_path):
         "model_configuration_results.png"]
 
 
-def _record_mains(monkeypatch, mc_mod, loss_mod, aug_mod):
+def _record_mains(monkeypatch, mc_mod, loss_mod, aug_mod, fs_mod):
     calls = []
     for mod in (mc_mod, loss_mod, aug_mod):
         monkeypatch.setattr(mod, "main", lambda _m=mod, **kw: calls.append(
             (_m.__name__.rsplit(".", 1)[-1], kw)))
+    monkeypatch.setattr(
+        fs_mod, "run_augmentation_selection_experiment",
+        lambda **kw: calls.append(("forward_selection", kw)))
     return calls
 
 
+@pytest.mark.parametrize("fold_parallel", [False, True],
+                         ids=["sequential", "fold-parallel"])
 @pytest.mark.parametrize("quick", [False, True], ids=["full", "quick"])
 @pytest.mark.parametrize("experiment", ["model_configuration",
                                         "loss_function",
-                                        "augmentation_amount"])
+                                        "augmentation_amount",
+                                        "augmentation_selection"])
 def test_cli_calls_the_driver_as_the_jax_cli(monkeypatch, experiment,
-                                             quick):
+                                             quick, fold_parallel):
     argv = ["--experiment", experiment, "--data-dir", "d",
             "--image-type", "B", "--save-root", "out"] + (
-        ["--quick"] if quick else [])
-    want = _record_mains(monkeypatch, jax_mc, jax_loss, jax_aug)
+        ["--quick"] if quick else []) + (
+        ["--fold-parallel"] if fold_parallel else [])
+    want = _record_mains(monkeypatch, jax_mc, jax_loss, jax_aug, jax_fs)
     jax_cli.main(argv)
-    got = _record_mains(monkeypatch, mc, loss, aug)
+    got = _record_mains(monkeypatch, mc, loss, aug, fs)
     cli.main(argv)
     (name, kw), = got
     assert kw.pop("device") == "cuda"
-    want[0][1].pop("fold_parallel", None)   # A17: not a port argument yet
     assert [(name, kw)] == want
 
 
-def test_cli_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A16"):
-        cli.main(["--experiment", "augmentation_selection"])
-    with pytest.raises(NotImplementedError, match="A17"):
-        cli.main(["--experiment", "loss_function", "--fold-parallel"])
+def test_cli_refuses_what_is_not_ported(monkeypatch):
+    """Nothing of the JAX CLI is left out now: ``augmentation_selection``
+    and ``--fold-parallel`` reach their drivers (the fold-parallel switch
+    in the config or the argument the JAX CLI gives); an unknown
+    experiment still exits."""
+    calls = _record_mains(monkeypatch, mc, loss, aug, fs)
+    cli.main(["--experiment", "augmentation_selection", "--quick",
+              "--fold-parallel", "--device", "cpu"])
+    cli.main(["--experiment", "loss_function", "--fold-parallel"])
+    cli.main(["--experiment", "model_configuration", "--fold-parallel"])
+    (sel, skw), (lossf, lkw), (mcn, mkw) = calls
+    assert sel == "forward_selection" and skw["device"] == "cpu"
+    assert skw["config_overrides"]["fold_parallel"] is True
+    assert (skw["cv_folds"], skw["max_augmentations"],
+            skw["quick_evaluation"]) == (2, 2, True)
+    assert lossf == "loss_comparison" and lkw["fold_parallel"] is True
+    assert mkw["base_overrides"] == {"fold_parallel": True}
     with pytest.raises(SystemExit):
         cli.main(["--experiment", "bogus"])

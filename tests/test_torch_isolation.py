@@ -40,8 +40,9 @@ def test_source_imports_nothing_of_jax(path):
 def test_sources_cover_every_port_module():
     """The glob above reaches the kernel wrappers, the bench tools, the
     training path, the data layer, the pretrained-encoder converter, the
-    K-fold harness, the drivers and the CLI, so the tests here check them
-    too."""
+    K-fold harness, fold-parallel training, the drivers (forward selection
+    too), the CLI, the metrics log, TensorBoard writer, profiling hooks and
+    plots, so the tests here check them too."""
     names = {str(p.relative_to(ROOT)) for p in SOURCES}
     for mod in ("kernels/attention_gate.py", "kernels/fused_conv.py",
                 "kernels/fused_block.py", "tools/__init__.py",
@@ -54,7 +55,10 @@ def test_sources_cover_every_port_module():
                 "eval/cross_validation.py", "experiments/common.py",
                 "experiments/model_configuration.py",
                 "experiments/loss_comparison.py",
-                "experiments/augmentation_amount.py", "cli.py"):
+                "experiments/augmentation_amount.py", "cli.py",
+                "core/logging.py", "core/tboard.py", "core/profiling.py",
+                "eval/fold_parallel.py", "experiments/forward_selection.py",
+                "viz/plots.py", "tools/experiment_runs.py"):
         assert f"segtpu_torch/{mod}" in names
     assert "chip_smoke.py" in names
 
