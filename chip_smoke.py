@@ -119,7 +119,30 @@ it, or when any phase fails:
    scores finite in [0, 1], 3 sets × 3 folds trainings per mode, every
    model on the card, the upsample launches ``_fused_level`` predicts
    (0); a ``selection {...}`` line;
-11. one JSON line ``{"kernels": [...]}`` (gate and upsample launches
+11. inference and deployment (n), on the serving phase's random
+   flagship weights in a bf16 ``Segmenter`` (f32 parameters): (n1) four
+   synthetic 2048² slides through ``make_tiled_predictor_many`` in halo
+   mode at overlap 32 (16 tiles of 544² per slide) and blend mode at tile
+   512, overlap 64 (25 tiles per slide): 4 gate launches per forward,
+   the probabilities and logits against the same tiler over the f32
+   model without kernels (§ serving's bars or, where bf16 alone misses
+   them, 1.25× bf16's own error), MPix/s (host clock, synchronised) and
+   peak memory; ``Segmenter.predict_tiled`` in halo mode, each output
+   tile against the model's direct bf16 forward of its padded window, and
+   each gate call of that forward against the plain version; (n2)
+   ``predict_proba(tta=True)`` on 16 images of 512² (8 forwards, 32 gate
+   launches) against the f32 TTA without kernels, img/s; (n3)
+   ``Segmenter.export`` with a symbolic batch, the same weights exported
+   on the CPU, and the no-attention flagship's artifact, each loaded by
+   ``ServingModel(path, device="cuda")`` in a fresh process where
+   ``segtpu_torch.models`` cannot be imported: batches 1, 5 and 16
+   against the live bf16 ``predict_proba`` within TOL_ARTIFACT (which the
+   f32 model must miss), 4 gate launches per forward from both attention
+   artifacts, one upsample launch per frozen fused level without
+   attention, and ``make_server(tiled=True)`` answering a 512² batch and
+   a 2048² slide with the ``ServingModel``'s own arrays; ``tiled``,
+   ``tta`` and ``serving_tiled`` lines;
+12. one JSON line ``{"kernels": [...]}`` (gate and upsample launches
    count every path above; their sums over the other encoders' shapes
    under ``encoders``), then the card line, then the result line
    ``{"ok": true, "device": {...}}``.
@@ -670,6 +693,11 @@ def decoder_shapes(model, batch: int, size: int) -> tuple:
     return (tuple(gates) if model.use_attention else ()), tuple(ups)
 
 
+def _use_kernels(model, on: bool):
+    model.fuse_gate = on
+    model.fuse = "kernel" if on else "none"
+
+
 def phase_serving(use_attention: bool, device="cuda", batch=BATCH,
                   size=SIZE, requests=REQUESTS, backbone="resnet34",
                   turns=FORWARD_TURNS, tag="serving",
@@ -696,10 +724,6 @@ def phase_serving(use_attention: bool, device="cuda", batch=BATCH,
     gate_shapes, up_shapes = decoder_shapes(model.eval(), batch, size)
     shapes = gate_shapes if use_attention else up_shapes
 
-    def use_kernels(m, on: bool):
-        m.fuse_gate = on
-        m.fuse = "kernel" if on else "none"
-
     def serve(m):
         """(responses, img/s, launch counts) of the requests, after one
         warm-up request that neither is timed nor counts launches."""
@@ -711,7 +735,7 @@ def phase_serving(use_attention: bool, device="cuda", batch=BATCH,
         ips = batch * requests / (time.perf_counter() - t0)
         return out, ips, launch_counts()
 
-    use_kernels(model, True)
+    _use_kernels(model, True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     probs, ips_on, counts = serve(model)
@@ -722,12 +746,12 @@ def phase_serving(use_attention: bool, device="cuda", batch=BATCH,
           f"{requests} requests (want {per_forward} per forward)")
     check(all(n == 0 for k, n in counts.items() if k != kernel),
           f"{label}: no other kernel launched ({counts})")
-    use_kernels(model, False)
+    _use_kernels(model, False)
     _, ips_off, _ = serve(model)
     x = _device_batch(model, reqs[0], device)
     fwd_on, fwd_off, fwd_on_all, fwd_off_all = _forward_ms(
-        model, x, use_kernels, turns)
-    use_kernels(model, True)
+        model, x, _use_kernels, turns)
+    _use_kernels(model, True)
     try:
         profiled = _device_profile(model, x)
     except Exception as exc:
@@ -738,24 +762,24 @@ def phase_serving(use_attention: bool, device="cuda", batch=BATCH,
           f"{label}: the profiled forward shows {kernel}'s device time "
           f"per forward ({got})")
 
-    use_kernels(ref32, False)
+    _use_kernels(ref32, False)
     ok_shape = all(p.shape == (batch, size, size, 1) and np.isfinite(p).all()
                    for p in probs)
     check(ok_shape, f"{label}: {requests} responses of shape "
           f"{(batch, size, size, 1)}, all finite")
     want = [predict_proba(ref32, r, device=device) for r in reqs]
     perr = max(float(np.abs(p - w).max()) for p, w in zip(probs, want))
-    use_kernels(model, True)
+    _use_kernels(model, True)
     lg_ref = _logits(ref32, reqs[0], device)
     scale = lg_ref.abs().max().item()
     lerr = (_logits(model, reqs[0], device) - lg_ref).abs().max().item()
     # the bf16 model without its kernel against the same reference: the
     # error bf16 arithmetic alone makes
-    use_kernels(model, False)
+    _use_kernels(model, False)
     lerr_plain = (_logits(model, reqs[0], device) - lg_ref).abs().max().item()
     perr_plain = max(float(np.abs(predict_proba(model, r, device=device)
                                   - w).max()) for r, w in zip(reqs, want))
-    use_kernels(model, True)
+    _use_kernels(model, True)
     tol_p, tol_l = TOL_PROBS, TOL_LOGITS_REL * scale
     if over_bf16:
         tol_p = max(tol_p, TOL_KERNEL_OVER_BF16 * perr_plain)
@@ -767,7 +791,7 @@ def phase_serving(use_attention: bool, device="cuda", batch=BATCH,
           f"{label}: bf16-with-kernel logits vs f32 plain: max_abs_err "
           f"{lerr:.3g} (tol {tol_l:.3g}, max|logit| {scale:.3g}; bf16 "
           f"without kernel {lerr_plain:.3g})")
-    use_kernels(ref32, True)
+    _use_kernels(ref32, True)
     l32err = (_logits(ref32, reqs[0], device) - lg_ref).abs().max().item()
     check(l32err <= TOL_MODEL_F32_REL * max(1.0, scale),
           f"{label}: f32-with-kernel logits vs f32 plain: max_abs_err "
@@ -2350,6 +2374,446 @@ def phase_selection(device="cuda", size=128) -> dict:
     return res
 
 
+# Phase (n): tiled and TTA inference, the serving export and the HTTP
+# server, on the serving phase's random flagship weights (resnet34,
+# attention, bf16 compute, f32 parameters). (n1) four synthetic slides of
+# SLIDE² through the tiler: halo mode at overlap 32, the JAX package's
+# serving preset (16 tiles of 544² per slide), and blend mode at tile 512,
+# overlap 64 (25 tiles per slide).
+SLIDE, SLIDES = 2048, 4
+HALO_OVERLAP, BLEND_OVERLAP = 32, 64
+# (n2): one predict_proba(tta=True) request of 16 images of 512².
+TTA_IMAGES = 16
+# (n3): the artifact answers these batches in a fresh process.
+ARTIFACT_BATCHES = (1, 5, 16)
+# (n3): the artifact against the live bf16 ``predict_proba`` on the same
+# weights and inputs. The artifact applies its sigmoid to f32 logits (as
+# the JAX package's serving graph does), the live path to bf16 logits,
+# which rounds a probability by up to 2^-9; the rest is the same ops on
+# the same card. 2^-8 holds that; an artifact that lost its autocast
+# region (an f32 graph) differs from the live bf16 model by the whole
+# bf16 error, which the check requires to exceed this bar.
+TOL_ARTIFACT = 2.0 ** -8
+
+# The deployment site of (n3): a fresh process in which
+# ``segtpu_torch.models`` cannot be imported loads each artifact with
+# ``ServingModel`` on the device, answers every batch saved beside it,
+# counts the kernel launches per call, times the direct and the tiled
+# path, and serves the first artifact over HTTP (tiled) to one batch and
+# one slide. It writes the outputs as .npy files and prints one JSON line.
+_DEPLOYMENT_SITE = r"""
+import importlib.abc, io, json, sys, threading, time
+class _Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[:2] == ["segtpu_torch", "models"]:
+            raise ImportError("blocked at the deployment site: " + name)
+sys.meta_path.insert(0, _Block())
+import numpy as np, torch
+from segtpu_torch.infer.export import ServingModel
+from segtpu_torch.infer.serve import client_predict, make_server
+from segtpu_torch.kernels import launch_counts, reset_launch_counts
+job = json.load(open(sys.argv[1]))
+dev = job["device"]
+sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+out = {"models_imported": None, "artifacts": {}}
+for name, spec in job["artifacts"].items():
+    sm = ServingModel(spec["path"], device=dev)
+    res = {"calls": []}
+    for i, xpath in enumerate(spec["inputs"]):
+        x = np.load(xpath)
+        sm.predict_proba(x)          # warm-up
+        sync()
+        reset_launch_counts()
+        y = sm.predict_proba(x)
+        sync()
+        res["calls"].append({"batch": int(x.shape[0]),
+                             "launches": launch_counts()})
+        np.save(spec["outputs"][i], y)
+        if spec.get("time") and i == len(spec["inputs"]) - 1:
+            t0 = time.perf_counter()
+            for _ in range(3):
+                sm.predict_proba(x)
+            sync()
+            res["img_per_s"] = 3 * x.shape[0] / (time.perf_counter() - t0)
+    if spec.get("slide"):
+        s = np.load(spec["slide"])
+        sm.predict_proba_tiled(s)    # warm-up
+        sync()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        y = sm.predict_proba_tiled(s)
+        sync()
+        dt = time.perf_counter() - t0
+        res["tiled"] = {"launches": launch_counts(), "seconds": dt,
+                        "mpix_per_s": s.shape[0] * s.shape[1] * s.shape[2]
+                        / dt / 1e6}
+        server = make_server(spec["path"], tiled=True, device=dev)
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        url = "http://127.0.0.1:%d" % server.server_address[1]
+        try:
+            x = np.load(spec["inputs"][-1])
+            res["http_batch_equal"] = bool(np.array_equal(
+                client_predict(url, x, timeout=600), sm.predict_proba(x)))
+            res["http_slide_equal"] = bool(np.array_equal(
+                client_predict(url, s, timeout=600), y))
+        finally:
+            server.shutdown()
+            server.server_close()
+    out["artifacts"][name] = res
+out["models_imported"] = sorted(m for m in sys.modules
+                                if m.startswith("segtpu_torch.models"))
+print(json.dumps(out))
+"""
+
+
+def _flagship_segmenter(use_attention: bool, device, size):
+    """A bf16 ``Segmenter`` (f32 parameters, bf16 autocast) holding the
+    serving phase's random flagship weights."""
+    from segtpu_torch.api import Segmenter
+    from segtpu_torch.train.engine import TrainState
+    seg = Segmenter(backbone="resnet34", use_attention=use_attention,
+                    device=device,
+                    config={"img_size": (size, size), "dtype": "bfloat16",
+                            "seed": SEED})
+    seg.state = TrainState(_randomized_flagship(use_attention, device,
+                                                size=size))
+    return seg
+
+
+class _Forwards:
+    """An NHWC ``apply_fn`` over ``model`` that counts its forwards."""
+
+    def __init__(self, model):
+        from segtpu_torch.infer.predict import nhwc_forward
+        self.model, self.forward, self.batches = model, nhwc_forward, []
+
+    def __call__(self, x):
+        self.batches.append(x.shape[0])
+        return self.forward(self.model, x.to(
+            next(self.model.parameters()).dtype))
+
+
+def _tiled_mode(seg, ref32, slides, mode, tile, overlap, device) -> dict:
+    """(n1) for one mode: the four slides through
+    ``make_tiled_predictor_many`` with the kernels (bf16) and without (f32
+    model), MPix/s of the kernel run (host clock, synchronised, after a
+    warm-up run), peak memory, gate launches per forward, and the
+    probabilities and logits held to §2's serving bars."""
+    from segtpu_torch.infer.tiled import make_tiled_predictor_many
+    from segtpu_torch.kernels import launch_counts, reset_launch_counts
+    model = seg.state.model
+    x = torch.from_numpy(slides[..., None]).to(device)
+    fwd = _Forwards(model)
+    predict = make_tiled_predictor_many(fwd, tile=tile, overlap=overlap,
+                                        mode=mode)
+    with torch.inference_mode(), seg.engine.autocast():
+        predict(x)                                         # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fwd.batches = []
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        logits = predict(x)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with torch.inference_mode():
+        want = make_tiled_predictor_many(_Forwards(ref32), tile=tile,
+                                         overlap=overlap, mode=mode)(x)
+        # the bf16 model without its kernel: the error bf16 alone makes
+        _use_kernels(model, False)
+        with seg.engine.autocast():
+            bf16 = make_tiled_predictor_many(_Forwards(model), tile=tile,
+                                             overlap=overlap, mode=mode)(x)
+        _use_kernels(model, True)
+    scale = want.abs().max().item()
+    lerr = (logits - want).abs().max().item()
+    perr = (torch.sigmoid(logits) - torch.sigmoid(want)).abs().max().item()
+    lerr_plain = (bf16 - want).abs().max().item()
+    perr_plain = (torch.sigmoid(bf16) - torch.sigmoid(want)).abs().max() \
+        .item()
+    del bf16
+    # §2's bars or, where bf16 alone misses them over all the slides,
+    # TOL_KERNEL_OVER_BF16 times bf16's own error, as in (j)
+    tol_p = max(TOL_PROBS, TOL_KERNEL_OVER_BF16 * perr_plain)
+    tol_l = max(TOL_LOGITS_REL * scale, TOL_KERNEL_OVER_BF16 * lerr_plain)
+    label = f"tiled (n1) {mode}"
+    check(tuple(logits.shape) == tuple(x.shape)
+          and bool(torch.isfinite(logits).all()),
+          f"{label}: {len(slides)} slides of {slides.shape[1]}², finite, "
+          f"shape {tuple(logits.shape)}")
+    check(counts["attention_gate"] == 4 * len(fwd.batches) > 0
+          and counts["upsample2x_concat"] == 0,
+          f"{label}: {counts['attention_gate']} gate launches in "
+          f"{len(fwd.batches)} forwards of {fwd.batches} tiles (want 4 per "
+          f"forward), no other kernel ({counts})")
+    check(perr <= tol_p and lerr <= tol_l,
+          f"{label}: bf16 with kernels vs f32 without: probabilities "
+          f"max_abs_err {perr:.3g} (tol {tol_p:.3g}), logits {lerr:.3g} "
+          f"(tol {tol_l:.3g}, max|logit| {scale:.3g}); bf16 without "
+          f"kernels {perr_plain:.3g} and {lerr_plain:.3g}")
+    mpix = slides.size / 1e6
+    return dict(mode=mode, tile=tile, overlap=overlap,
+                tiles_per_forward=fwd.batches,
+                launches=counts["attention_gate"],
+                seconds=dt, mpix_per_s=mpix / dt, max_memory_gib=peak,
+                probs_max_abs_err=perr, logits_max_abs_err=lerr,
+                probs_max_abs_err_bf16_plain=perr_plain,
+                logits_max_abs_err_bf16_plain=lerr_plain,
+                logits_max_abs=scale)
+
+
+def _halo_composition(seg, slide, tile, overlap, device) -> dict:
+    """(n1): ``Segmenter.predict_tiled`` of one slide in halo mode, its
+    gate calls recorded: each output tile against the model's direct
+    forward of its reflect-padded window (the 16 windows in one batch, as
+    the tiler runs them), in bf16, within TOL_BF16 of the logits' scale;
+    every gate call against the plain version at its tile shapes."""
+    import torch.nn.functional as F
+    from segtpu_torch.infer.predict import nhwc_forward
+    from segtpu_torch.infer.tiled import _halo
+    from segtpu_torch.kernels import launch_counts, reset_launch_counts
+    model = seg.state.model
+    halo = _halo(tile, overlap)
+    reset_launch_counts()
+    with _GateCalls() as rec:
+        probs = seg.predict_tiled(slide, tile=tile, overlap=overlap,
+                                  mode="halo")
+    launched = launch_counts()["attention_gate"]
+    shapes, errs, shares = rec.against_plain(TOL_BF16)
+    n = slide.shape[0] // tile
+    check(len(rec.calls) == 4 and max(shares) <= 1.0
+          and all(s[0] == n * n and s[1] == (tile + 2 * halo) >> (4 - i)
+                  for i, s in enumerate(shapes)),
+          f"tiled (n1) halo: the {len(rec.calls)} gate calls of one "
+          f"slide's forward (want 4), (B, H, W, Cg, Cx, F) {shapes}, vs "
+          f"the plain version: max_abs_err {errs}, {shares} of the "
+          f"tolerance")
+    del rec
+    x = torch.from_numpy(slide[None, None]).to(device)
+    padded = F.pad(x, (halo,) * 4, mode="reflect")[0].permute(1, 2, 0)
+    wins = torch.stack([padded[oy:oy + tile + 2 * halo,
+                               ox:ox + tile + 2 * halo]
+                        for oy in range(0, slide.shape[0], tile)
+                        for ox in range(0, slide.shape[1], tile)])
+    with torch.inference_mode(), seg.engine.autocast():
+        direct = torch.sigmoid(nhwc_forward(model, wins).float())
+    direct = direct[:, halo:halo + tile, halo:halo + tile].cpu().numpy()
+    got = probs.reshape(n, tile, n, tile, 1).transpose(0, 2, 1, 3, 4) \
+        .reshape(n * n, tile, tile, 1)
+    err = float(np.abs(got - direct).max())
+    check(err <= TOL_BF16, f"tiled (n1) halo: each of the {n * n} output "
+          f"tiles vs the model's direct bf16 forward of its padded window: "
+          f"max_abs_err {err:.3g} (tol {TOL_BF16:.3g})")
+    return dict(composition_max_abs_err=err, launches=launched,
+                gate_path_shapes=shapes,
+                gate_path_max_abs_err=errs, gate_path_tol_share=shares)
+
+
+def _tta(seg, ref32, size, device) -> dict:
+    """(n2): ``predict_proba(tta=True)`` on TTA_IMAGES images of size²:
+    8 forwards and 32 gate launches, img/s (host clock, after a warm-up),
+    held against the f32 TTA without kernels at §2's probability bar."""
+    from segtpu_torch.infer.tta import tta_predict_proba
+    from segtpu_torch.kernels import launch_counts, reset_launch_counts
+    rng = np.random.default_rng(SEED + 9)
+    x = rng.uniform(0, 1, (TTA_IMAGES, size, size)).astype(np.float32)
+    seg.predict_proba(x, tta=True)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    got = seg.predict_proba(x, tta=True)
+    dt = time.perf_counter() - t0
+    counts = launch_counts()
+    want = tta_predict_proba(ref32, x[..., None], device=device)
+    err = float(np.abs(got - want).max())
+    check(got.shape == (TTA_IMAGES, size, size, 1)
+          and counts["attention_gate"] == 32
+          and counts["upsample2x_concat"] == 0,
+          f"tta (n2): {TTA_IMAGES} images, {counts['attention_gate']} gate "
+          f"launches (want 8 forwards x 4), shape {got.shape}")
+    check(err <= TOL_PROBS, f"tta (n2): bf16 with kernels vs f32 TTA "
+          f"without: max_abs_err {err:.3g} (tol {TOL_PROBS})")
+    return dict(images=TTA_IMAGES, launches=counts["attention_gate"],
+                img_per_s=TTA_IMAGES / dt, seconds=dt, probs_max_abs_err=err)
+
+
+def _dir_bytes(path) -> int:
+    import os
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def _export_and_serve(seg, ref32, slide, root, size, device) -> dict:
+    """(n3): the flagship's artifact (symbolic batch, exported on the
+    device), the same weights exported on the CPU, and the no-attention
+    flagship's artifact, each served at its deployment site (a fresh
+    process without ``segtpu_torch.models``); the checks of (n3)."""
+    import os
+    from segtpu_torch.infer.export import save_serving
+    from segtpu_torch.infer.predict import predict_proba
+    rng = np.random.default_rng(SEED + 10)
+    xs = [rng.uniform(0, 1, (b, size, size)).astype(np.float32)
+          for b in ARTIFACT_BATCHES]
+    t0 = time.perf_counter()
+    path = seg.export(os.path.join(root, "flagship"))
+    export_s = time.perf_counter() - t0
+    from segtpu_torch.models.unet import UNetWithBackbone
+    cpu_model = UNetWithBackbone(backbone="resnet34", use_attention=True,
+                                 device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in
+                               seg.state.model.state_dict().items()})
+    t0 = time.perf_counter()
+    cpu_path = save_serving(os.path.join(root, "flagship-cpu"), cpu_model,
+                            (size, size), compute_dtype=torch.bfloat16)
+    export_cpu_s = time.perf_counter() - t0
+    del cpu_model
+    plain = _flagship_segmenter(False, device, size)
+    path_na = plain.export(os.path.join(root, "no-attention"))
+    meta_na = json.load(open(os.path.join(path_na, "meta.json")))
+
+    for i, x in enumerate(xs):
+        np.save(os.path.join(root, f"x{i}.npy"), x[..., None])
+    job = {"device": device, "artifacts": {
+        "flagship": {"path": path, "time": True,
+                     "slide": os.path.join(root, "slide.npy")},
+        "flagship-cpu": {"path": cpu_path},
+        "no-attention": {"path": path_na}}}
+    np.save(os.path.join(root, "slide.npy"), slide[None, ..., None])
+    for name, spec in job["artifacts"].items():
+        idx = range(len(xs)) if name == "flagship" else (1, 2)
+        spec["inputs"] = [os.path.join(root, f"x{i}.npy") for i in idx]
+        spec["outputs"] = [os.path.join(root, f"{name}-y{i}.npy")
+                           for i in idx]
+    with open(os.path.join(root, "job.json"), "w") as f:
+        json.dump(job, f)
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, "-c", _DEPLOYMENT_SITE,
+                           os.path.join(root, "job.json")], cwd=here,
+                          capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:], file=sys.stderr)
+    check(proc.returncode == 0, f"serve (n3): the deployment site exited "
+          f"{proc.returncode}")
+    site = json.loads(proc.stdout.strip().splitlines()[-1]) \
+        if proc.returncode == 0 else {"artifacts": {}}
+    check(site.get("models_imported") == [], f"serve (n3): the deployment "
+          f"site imported no segtpu_torch.models "
+          f"({site.get('models_imported')})")
+
+    res = dict(export_s=export_s, export_cpu_s=export_cpu_s,
+               artifact_bytes=_dir_bytes(path),
+               fused_upsample_levels=meta_na["fused_upsample_levels"])
+    launches = {"attention_gate": 0, "upsample2x_concat": 0}
+    models = {"flagship": seg, "flagship-cpu": seg, "no-attention": plain}
+    for name, spec in job["artifacts"].items():
+        got = site["artifacts"].get(name, {})
+        calls = got.get("calls", [])
+        live = models[name]
+        per_call, errs = [], []
+        for c, xpath, ypath in zip(calls, spec["inputs"], spec["outputs"]):
+            x = np.load(xpath)
+            y = np.load(ypath)
+            want = live.predict_proba(x)
+            errs.append(float(np.abs(y - want).max()))
+            for k in launches:
+                launches[k] += c["launches"][k]
+            per_call.append(c["launches"])
+        want_gate = 0 if name == "no-attention" else 4
+        want_up = len(meta_na["fused_upsample_levels"]) \
+            if name == "no-attention" else 0
+        ok_launch = len(calls) == len(spec["inputs"]) and all(
+            c["attention_gate"] == want_gate
+            and c["upsample2x_concat"] == want_up for c in per_call)
+        check(ok_launch, f"serve (n3) {name}: {len(calls)} calls at batches "
+              f"{[c['batch'] for c in calls]}, launches per call "
+              f"{per_call} (want {want_gate} gate, {want_up} upsample)")
+        # the no-attention artifact's routing is frozen at batch 16: at
+        # batch 5 it fuses where the live model does not, so that call is
+        # held to §2's serving bar
+        tols = [TOL_PROBS if (name == "no-attention" and c["batch"] != 16)
+                else TOL_ARTIFACT for c in calls]
+        check(bool(errs) and all(e <= t for e, t in zip(errs, tols)),
+              f"serve (n3) {name}: vs the live bf16 predict_proba, "
+              f"max_abs_err {errs} (tol {tols})")
+        res[name] = dict(batches=[c["batch"] for c in calls],
+                         launches_per_call=per_call, max_abs_err=errs,
+                         **{k: got[k] for k in ("img_per_s", "tiled",
+                                                "http_batch_equal",
+                                                "http_slide_equal")
+                            if k in got})
+    flag = res["flagship"]
+    tiled = flag.get("tiled", {"launches": {}})
+    for k in launches:
+        launches[k] += tiled["launches"].get(k, 0)
+    check(flag.get("http_batch_equal") is True
+          and flag.get("http_slide_equal") is True,
+          f"serve (n3): make_server(tiled=True) answered a {size}² batch "
+          f"and a {slide.shape[0]}² slide with the ServingModel's own "
+          f"arrays, bit for bit ({flag.get('http_batch_equal')}, "
+          f"{flag.get('http_slide_equal')})")
+    check(tiled["launches"].get("attention_gate", 0) > 0
+          and tiled["launches"]["attention_gate"] % 4 == 0,
+          f"serve (n3): the artifact's tiled slide launched the gate "
+          f"{tiled['launches'].get('attention_gate')} times (4 per forward)")
+    # the bar must tell an f32 graph from a bf16 one: the f32 model's
+    # probabilities against the live bf16 ones miss it
+    f32err = float(np.abs(predict_proba(ref32, xs[-1], device=device)
+                          - seg.predict_proba(xs[-1])).max())
+    check(f32err > TOL_ARTIFACT, f"serve (n3): an f32 graph would miss the "
+          f"artifact bar: f32 vs bf16 live max_abs_err {f32err:.3g} > "
+          f"{TOL_ARTIFACT:.3g}")
+    res.update(f32_vs_bf16_max_abs_err=f32err, launches=launches)
+    return res
+
+
+def phase_inference(device="cuda", size=SIZE, slide_size=SLIDE,
+                    slides=SLIDES) -> dict:
+    """(n1)-(n3) of the module docstring; prints the ``tiled``, ``tta``
+    and ``serving_tiled`` lines and returns {"launches": ...}."""
+    import tempfile
+    seg = _flagship_segmenter(True, device, size)
+    ref32 = copy.deepcopy(seg.state.model)
+    _use_kernels(ref32, False)
+    rng = np.random.default_rng(SEED + 8)
+    imgs = rng.uniform(0, 1, (slides, slide_size, slide_size)).astype(
+        np.float32)
+    from segtpu_torch.kernels import launch_counts, reset_launch_counts
+    modes = [_tiled_mode(seg, ref32, imgs, "halo", size, HALO_OVERLAP,
+                         device),
+             _tiled_mode(seg, ref32, imgs, "blend", size, BLEND_OVERLAP,
+                         device)]
+    # the Segmenter's own tiled entry point, halo mode at tile = size
+    # (16 tiles of 544² per 2048² slide): one slide's composition, then
+    # all slides timed
+    comp = _halo_composition(seg, imgs[0], size, HALO_OVERLAP, device)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for im in imgs:
+        seg.predict_tiled(im, tile=size, overlap=HALO_OVERLAP, mode="halo")
+    seg_s = time.perf_counter() - t0
+    seg_launches = launch_counts()["attention_gate"]
+    check(seg_launches == 4 * slides, f"tiled (n1): Segmenter.predict_tiled "
+          f"of {slides} slides launched the gate {seg_launches} times "
+          f"(want 4 per slide: one forward of its tiles)")
+    tiled = dict(slides=slides, slide=slide_size, modes=modes,
+                 segmenter_halo_mpix_per_s=imgs.size / 1e6 / seg_s,
+                 segmenter_launches=seg_launches, **comp)
+    print("tiled " + json.dumps(tiled), flush=True)
+    tta = _tta(seg, ref32, size, device)
+    print("tta " + json.dumps(tta), flush=True)
+    with tempfile.TemporaryDirectory(prefix="segtpu-torch-serve-") as root:
+        served = _export_and_serve(seg, ref32, imgs[0], root, size, device)
+    print("serving_tiled " + json.dumps(served), flush=True)
+    return {"launches": {
+        "attention_gate": sum(m["launches"] for m in modes)
+        + comp["launches"] + seg_launches + tta["launches"]
+        + served["launches"]["attention_gate"],
+        "upsample2x_concat": served["launches"]["upsample2x_concat"]}}
+
+
 KERNEL_META = {
     "attention_gate": dict(
         source="segtpu_torch/csrc/attention_gate.cu",
@@ -2382,6 +2846,7 @@ def main() -> int:
     grid = phase_grid()
     folds = phase_folds()
     selection = phase_selection()
+    inference = phase_inference()
     # each kernel's launches on its own main paths: the serving models
     # and the training runs that run it, or the bench entry points for the
     # conv and the pair
@@ -2391,13 +2856,15 @@ def main() -> int:
                 + encoders["launches"]["attention_gate"]
                 + grid["launches"]["attention_gate"]
                 + folds["launches"]["attention_gate"]
-                + selection["launches"]["attention_gate"],
+                + selection["launches"]["attention_gate"]
+                + inference["launches"]["attention_gate"],
                 "upsample2x_concat": served["upsample2x_concat"]["launches"]
                 + trained["upsample_launches_no_attention"]
                 + encoders["launches"]["upsample2x_concat"]
                 + grid["launches"]["upsample2x_concat"]
                 + folds["launches"]["upsample2x_concat"]
-                + selection["launches"]["upsample2x_concat"],
+                + selection["launches"]["upsample2x_concat"]
+                + inference["launches"]["upsample2x_concat"],
                 "conv3x3_bn_relu": benched["conv3x3_bn_relu"],
                 "conv_pair_bn_relu": benched["conv_pair_bn_relu"]}
 

@@ -12,15 +12,19 @@ names (``{name}.pt``), which ``segtpu.models.torch_convert
 .load_reference_checkpoint`` reads, and a ``{name}_config.json`` sidecar
 with the JAX package's keys.
 
-Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP item: ``tta`` and ``predict_tiled`` (A19), ``export`` (A20).
+``predict_proba(tta=True)`` averages over the D4 symmetries
+(``infer/tta.py``), ``predict_tiled`` runs sliding-window inference on
+one large image (``infer/tiled.py``), and ``export`` writes a
+``torch.export`` serving artifact (``infer/export.py``) that
+``ServingModel`` and the HTTP server (``infer/serve.py``) load without
+the model code; each runs in the configured compute dtype.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -29,7 +33,10 @@ from segtpu_torch import resolve_device
 from segtpu_torch.data.loader import DeviceDataLoader
 from segtpu_torch.data.preprocess import (_round_u8, load_canonical_images,
                                           normalize_canonical)
+from segtpu_torch.infer.export import save_serving
 from segtpu_torch.infer.predict import predict_proba
+from segtpu_torch.infer.tiled import tiled_predict
+from segtpu_torch.infer.tta import tta_predict_proba
 from segtpu_torch.models.torch_convert import load_pretrained
 from segtpu_torch.ops.resize import resize_area
 from segtpu_torch.train.engine import TrainState, get_engine
@@ -130,17 +137,17 @@ class Segmenter:
                       chunk: Optional[int] = None) -> np.ndarray:
         """Probability maps (N, S, S, n_classes) float32: per-pixel
         sigmoid for binary models, channel softmax for n_classes > 1, in
-        the configured compute dtype. ``chunk``: at most ``chunk`` images
-        per forward."""
-        if tta:
-            raise NotImplementedError("tta=True needs the port of "
-                                      "segtpu/infer/tta.py (ROADMAP A19)")
+        the configured compute dtype. ``tta=True`` averages them over the
+        exact D4 symmetries of the image plane (``infer/tta.py``): 8
+        forwards per image. ``chunk``: at most ``chunk`` images per
+        forward."""
         state = self._require_state()
         x = self._prep_images(images)
         step = x.shape[0] if chunk is None else int(chunk)
+        fn = tta_predict_proba if tta else predict_proba
         with self.engine.autocast():
             return np.concatenate([
-                predict_proba(state.model, x[i:i + step], device=self.device)
+                fn(state.model, x[i:i + step], device=self.device)
                 for i in range(0, x.shape[0], step)])
 
     def predict(self, images, threshold: float = 0.5,
@@ -163,9 +170,19 @@ class Segmenter:
                               for m in masks])[..., None]
         return masks
 
-    def predict_tiled(self, image, **kwargs):
-        raise NotImplementedError("predict_tiled needs the port of "
-                                  "segtpu/infer/tiled.py (ROADMAP A19)")
+    def predict_tiled(self, image, tile: int = 512, overlap: int = 64,
+                      batch_tiles: Optional[int] = None, tta: bool = False,
+                      mode: str = "blend") -> np.ndarray:
+        """Sliding-window inference on one large normalised image (H, W)
+        or (H, W, 1): probabilities (H, W, n_classes) float32.
+        ``mode="blend"`` (default) cosine-blends overlapping tiles;
+        ``mode="halo"`` keeps each tile's centre crop of a wider input
+        window (less compute). ``tta=True`` D4-averages each tile."""
+        state = self._require_state()
+        with self.engine.autocast():
+            return tiled_predict(state.model, image, tile=tile,
+                                 overlap=overlap, batch_tiles=batch_tiles,
+                                 tta=tta, mode=mode, device=self.device)
 
     # ---------------------------------------------------------- evaluate
 
@@ -264,9 +281,19 @@ class Segmenter:
             kw["config"] = cfg
         return cls(**kw, device=device).load(path, name=name)
 
-    def export(self, path: str, **kwargs):
-        raise NotImplementedError("export needs the port of "
-                                  "segtpu/infer/export.py (ROADMAP A20)")
+    def export(self, path: str, batch: Optional[int] = None,
+               dtype=torch.float32,
+               platforms: Optional[Sequence[str]] = None) -> str:
+        """Write a self-contained serving artifact (``torch.export``,
+        weights inside, symbolic batch unless ``batch`` is given, the
+        configured compute dtype's autocast inside) that
+        ``segtpu_torch.infer.load_serving`` loads with no model code on
+        either device of ``platforms`` (default both). Returns ``path``."""
+        state = self._require_state()
+        return save_serving(path, state.model,
+                            tuple(self.config["img_size"]), batch=batch,
+                            dtype=dtype, platforms=platforms,
+                            compute_dtype=self.engine.compute_dtype)
 
     def load_pretrained_encoder(self, checkpoint_path: str) -> "Segmenter":
         """pretrained=True: the config's seed's fresh init with a local

@@ -1,4 +1,5 @@
-"""Build and load the hand-written CUDA kernels of ``segtpu_torch/csrc``.
+"""Build and load the hand-written CUDA kernels of ``segtpu_torch/csrc``,
+and give their ``torch.library`` ops a gradient.
 
 Each ``csrc/<name>.cu`` is compiled at first use by its own ``nvcc`` into
 ``build/segtpu_torch/lib<name>.so`` at the root of the checkout (all
@@ -114,3 +115,25 @@ def check(name: str, code: int) -> None:
         msg = getattr(load(name), f"{name}_error_string")(code).decode()
         raise RuntimeError(f"segtpu_torch kernel {name}: CUDA error {code} "
                            f"({msg})")
+
+
+def register_plain_autograd(op, plain) -> None:
+    """Give the custom op ``op`` the gradient of its plain version
+    ``plain``: the backward recomputes ``plain`` on the saved inputs and
+    differentiates it (the Pallas kernels have no backward either; the
+    models run the kernels only in eval mode, where a forward with grad
+    enabled still has to reach its inputs' gradients)."""
+
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    def backward(ctx, grad):
+        ins = [t.detach().requires_grad_(need)
+               for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            out = plain(*ins)
+        wrt = [t for t in ins if t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wrt, grad))
+        return tuple(next(grads) if t.requires_grad else None for t in ins)
+
+    op.register_autograd(backward, setup_context=setup_context)

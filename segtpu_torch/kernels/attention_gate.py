@@ -76,14 +76,30 @@ def attention_gate(g, x, ag, ax, bh, apsi, bpsi):
 
     g (B,H,W,Cg), x (B,H,W,Cx) NHWC-contiguous; ag (Cg,F), ax (Cx,F) and
     apsi (F,) in x's dtype; bh (F,) and bpsi (1,) float32. Returns
-    (B,H,W,Cx) in x's dtype. A CPU tensor takes the plain version; a CUDA
-    tensor launches the kernel (and counts the launch) or raises.
+    (B,H,W,Cx) in x's dtype. Runs the op ``segtpu_torch::attention_gate``,
+    each of whose implementations checks the operands first: a CPU tensor
+    takes the plain version; a CUDA tensor launches the kernel (and counts
+    the launch) or raises. ``torch.export`` records the op, so an exported
+    graph picks its implementation by the device it runs on.
     """
+    return attention_gate_op(g, x, ag, ax, bh, apsi, bpsi)
+
+
+attention_gate.launches = 0
+
+
+@torch.library.custom_op("segtpu_torch::attention_gate", mutates_args=(),
+                         device_types="cpu")
+def attention_gate_op(g: torch.Tensor, x: torch.Tensor, ag: torch.Tensor,
+                      ax: torch.Tensor, bh: torch.Tensor, apsi: torch.Tensor,
+                      bpsi: torch.Tensor) -> torch.Tensor:
     _check(g, x, ag, ax, bh, apsi, bpsi)
-    if x.device.type == "cpu":
-        return attention_gate_plain(g, x, ag, ax, bh, apsi, bpsi)
-    if x.device.type != "cuda":
-        raise ValueError(f"attention_gate: unsupported device {x.device}")
+    return attention_gate_plain(g, x, ag, ax, bh, apsi, bpsi)
+
+
+@attention_gate_op.register_kernel("cuda")
+def _attention_gate_cuda(g, x, ag, ax, bh, apsi, bpsi):
+    _check(g, x, ag, ax, bh, apsi, bpsi)
     out = torch.empty_like(x)
     fn = _build.launcher("attention_gate", ARGTYPES)
     with torch.cuda.device(x.device):
@@ -98,4 +114,10 @@ def attention_gate(g, x, ag, ax, bh, apsi, bpsi):
     return out
 
 
-attention_gate.launches = 0
+@attention_gate_op.register_fake
+def _attention_gate_fake(g, x, ag, ax, bh, apsi, bpsi):
+    _check(g, x, ag, ax, bh, apsi, bpsi)
+    return x.new_empty(x.shape)
+
+
+_build.register_plain_autograd(attention_gate_op, attention_gate_plain)

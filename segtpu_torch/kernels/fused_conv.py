@@ -73,15 +73,30 @@ def upsample2x_concat(x, wv, b, skip):
 
     x (B,H,W,Cin), wv (Cin,2,2,Co) and skip (B,2H,2W,Cs), all
     NHWC-contiguous in one dtype; b (Co,) float32. Returns
-    (B,2H,2W,Cs+Co), channels ordered [skip, up]. A CPU tensor takes the
-    plain version; a CUDA tensor launches the kernel (and counts the
-    launch) or raises.
+    (B,2H,2W,Cs+Co), channels ordered [skip, up]. Runs the op
+    ``segtpu_torch::upsample2x_concat``, each of whose implementations
+    checks the operands first: a CPU tensor takes the plain version; a
+    CUDA tensor launches the kernel (and counts the launch) or raises.
+    ``torch.export`` records the op, so an exported graph picks its
+    implementation by the device it runs on.
     """
+    return upsample2x_concat_op(x, wv, b, skip)
+
+
+upsample2x_concat.launches = 0
+
+
+@torch.library.custom_op("segtpu_torch::upsample2x_concat", mutates_args=(),
+                         device_types="cpu")
+def upsample2x_concat_op(x: torch.Tensor, wv: torch.Tensor, b: torch.Tensor,
+                         skip: torch.Tensor) -> torch.Tensor:
     _check(x, wv, b, skip)
-    if x.device.type == "cpu":
-        return upsample2x_concat_plain(x, wv, b, skip)
-    if x.device.type != "cuda":
-        raise ValueError(f"upsample2x_concat: unsupported device {x.device}")
+    return upsample2x_concat_plain(x, wv, b, skip)
+
+
+@upsample2x_concat_op.register_kernel("cuda")
+def _upsample2x_concat_cuda(x, wv, b, skip):
+    _check(x, wv, b, skip)
     bsz, h, w, cin = x.shape
     co, cs = wv.shape[-1], skip.shape[-1]
     out = torch.empty((bsz, 2 * h, 2 * w, cs + co), dtype=x.dtype,
@@ -97,7 +112,14 @@ def upsample2x_concat(x, wv, b, skip):
     return out
 
 
-upsample2x_concat.launches = 0
+@upsample2x_concat_op.register_fake
+def _upsample2x_concat_fake(x, wv, b, skip):
+    _check(x, wv, b, skip)
+    bsz, h, w, _ = x.shape
+    return x.new_empty((bsz, 2 * h, 2 * w, skip.shape[-1] + wv.shape[-1]))
+
+
+_build.register_plain_autograd(upsample2x_concat_op, upsample2x_concat_plain)
 
 
 def conv3x3_bn_relu_plain(x, w, scale, bias):

@@ -94,7 +94,14 @@ class AttentionGate(nn.Module):
 
     def forward(self, g, x, fused: bool = False):
         if fused and not self.training:
-            out = attention_gate(g.permute(0, 2, 3, 1), x.permute(0, 2, 3, 1),
+            # the kernel takes NHWC-contiguous operands: the views of
+            # channels_last g and x are, and ``contiguous`` returns them
+            # as they are; it copies only a tensor whose layout is not
+            # channels_last (a 1×1 map, or ``torch.export``'s trace, whose
+            # meta strides of a transposed conv's output may be NCHW where
+            # the card's are not)
+            out = attention_gate(g.permute(0, 2, 3, 1).contiguous(),
+                                 x.permute(0, 2, 3, 1).contiguous(),
                                  *self.folded(x.dtype))
             return out.permute(0, 3, 1, 2)
         return x * self.psi(F.relu(self.W_g(g) + self.W_x(x)))

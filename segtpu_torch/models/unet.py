@@ -22,6 +22,7 @@ follow the reference (``input_conv``, ``enc1.0.conv1``, ``upconv4``,
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -86,10 +87,12 @@ class _UpConv2x(nn.ConvTranspose2d):
         if skip is None:
             raise ValueError("_UpConv2x: fused=True needs skip")
         # the weight in the activations' dtype (f32 parameters under
-        # autocast), as the unfused transposed conv casts it
-        out = upsample2x_concat(x.permute(0, 2, 3, 1),
-                                self.weight.to(x.dtype).permute(0, 2, 3, 1),
-                                self.bias.float(), skip.permute(0, 2, 3, 1))
+        # autocast), as the unfused transposed conv casts it; NHWC views,
+        # made contiguous as the attention gate's operands are
+        out = upsample2x_concat(x.permute(0, 2, 3, 1).contiguous(),
+                                self.weight.to(x.dtype).permute(0, 2, 3, 1)
+                                .contiguous(), self.bias.float(),
+                                skip.permute(0, 2, 3, 1).contiguous())
         return out.permute(0, 3, 1, 2)
 
 
@@ -124,6 +127,7 @@ class UNetWithBackbone(nn.Module):
         self.fuse_min_work = fuse_min_work
         self.fuse_head = fuse_head
         self.fuse_gate = fuse_gate
+        self._routing_batch = None     # set by ``routing_at_batch``
 
         # the encoder's modules sit at the top level (reference key names)
         for name, mod in make_encoder(backbone, **kw).named_children():
@@ -185,13 +189,31 @@ class UNetWithBackbone(nn.Module):
         self._set_final_bias_prior()
         return self
 
-    def _fused_level(self, d: torch.Tensor) -> bool:
+    def _fused_level(self, d: torch.Tensor, lvl: Optional[int] = None
+                     ) -> bool:
         b, c, h, w = d.shape
-        return (self.fuse == "kernel" and not self.training
-                and not self.use_attention
-                and c >= self.fuse_min_cin
-                and b * h * w >= self.fuse_min_work
-                and h % min(32, h) == 0 and w % min(32, w) == 0)
+        if self._routing_batch is not None:
+            b = self._routing_batch
+        fused = (self.fuse == "kernel" and not self.training
+                 and not self.use_attention
+                 and c >= self.fuse_min_cin
+                 and b * h * w >= self.fuse_min_work
+                 and h % min(32, h) == 0 and w % min(32, w) == 0)
+        if fused and self._routing_batch is not None:
+            self._routed_levels.add(lvl)
+        return fused
+
+    @contextlib.contextmanager
+    def routing_at_batch(self, batch: int):
+        """For ``torch.export`` with a symbolic batch: while entered,
+        ``_fused_level`` decides each level at ``batch`` in place of the
+        input's batch (so tracing adds no guard on it), and the levels it
+        fuses are collected in the set it yields."""
+        self._routing_batch, self._routed_levels = int(batch), set()
+        try:
+            yield self._routed_levels
+        finally:
+            self._routing_batch = None
 
     def forward(self, x: torch.Tensor, return_features: bool = False):
         x1, x2, x3, x4, x5 = self._encoder_features(self, x)
@@ -211,7 +233,7 @@ class UNetWithBackbone(nn.Module):
                 d = decoder(torch.cat([skip_att, d], dim=1))
                 d = getattr(self, f"ch_attention{lvl}")(d)
             else:
-                if self._fused_level(d):
+                if self._fused_level(d, lvl):
                     cat = upconv(d, skip=skip, fused=True)
                 else:
                     cat = torch.cat([skip, upconv(d)], dim=1)

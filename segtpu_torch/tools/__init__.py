@@ -1,7 +1,9 @@
 """Command-line tools of the port, counterparts of the JAX package's
-``tools/``: ``kernel_bench`` (conv3×3+BN+ReLU and upsample+concat) and
-``fused_block_bench`` (the fused decoder pair), each run as
-``python -m segtpu_torch.tools.<name>`` and callable as ``main(argv)``.
+``tools/``: ``kernel_bench`` (conv3×3+BN+ReLU and upsample+concat),
+``fused_block_bench`` (the fused decoder pair), ``experiment_runs`` (the
+four drivers through the CLI) and ``serve`` (the HTTP server over an
+exported artifact), each run as ``python -m segtpu_torch.tools.<name>``
+and callable as ``main(argv)``.
 
 Shared here: the timer and the device label that every result carries.
 """

@@ -1,6 +1,7 @@
 """The port's ``Segmenter`` (segtpu_torch.api) on the CPU: fit → save →
 from_checkpoint → predict, its result schema against the JAX package's,
-port-trained weights carried back into ``segtpu``, and the parts left out.
+port-trained weights carried back into ``segtpu``, TTA and tiling against
+``segtpu``'s on those weights, and the parts left out.
 
 Tolerances: predictions of a reloaded model are bit-identical (same
 weights, same ops, same batch); other batchings within 1e-6 (the CPU's
@@ -20,9 +21,12 @@ import torch
 import jax.numpy as jnp
 
 from segtpu.infer.predict import predict_proba as jax_predict_proba
+from segtpu.infer.tiled import tiled_predict as jax_tiled_predict
+from segtpu.infer.tta import tta_predict_proba as jax_tta_predict_proba
 from segtpu.models.torch_convert import load_reference_checkpoint
 from segtpu.models.unet import UNetWithBackbone as JaxUNet
 from segtpu_torch.api import Segmenter
+from segtpu_torch.infer.tiled import make_tiled_predictor
 from segtpu_torch.train.engine import METRIC_KEYS
 
 S = 32
@@ -143,15 +147,44 @@ def test_port_trained_weights_load_into_the_jax_package(tmp_path):
 
 
 def test_parts_left_out_raise_with_their_roadmap_item():
-    seg, imgs, masks = _fitted("resnet_tiny", True)
-    for call, item in (
-            (lambda: seg.predict_proba(imgs[:1], tta=True), "A19"),
-            (lambda: seg.predict_tiled(imgs[0]), "A19"),
-            (lambda: seg.export("x"), "A20")):
-        with pytest.raises(NotImplementedError, match=item):
+    """TTA, tiling and export are ported; what is left of inference is
+    tiling across devices (A21). An unfitted Segmenter refuses every
+    inference call."""
+    _, imgs, _ = _fitted("resnet_tiny", True)
+    with pytest.raises(NotImplementedError, match="A21"):
+        make_tiled_predictor(lambda x: x, shard_tiles_axis="tiles")
+    unfitted = Segmenter(backbone="resnet_tiny", device="cpu")
+    for call in (lambda: unfitted.predict(imgs[:1]),
+                 lambda: unfitted.predict_proba(imgs[:1], tta=True),
+                 lambda: unfitted.predict_tiled(np.zeros((40, 40))),
+                 lambda: unfitted.export("x")):
+        with pytest.raises(RuntimeError, match="not fitted"):
             call()
-    with pytest.raises(RuntimeError, match="not fitted"):
-        Segmenter(backbone="resnet_tiny", device="cpu").predict(imgs[:1])
+
+
+def test_segmenter_tta_and_tiled_match_jax():
+    """``predict_proba(tta=True)``, ``sweep_threshold(tta=True)`` and
+    ``predict_tiled`` of a fitted Segmenter against the JAX package's
+    TTA and tiling on the same (port-trained) weights; probabilities
+    within 1e-4 (see the module docstring)."""
+    seg, imgs, masks = _fitted("resnet34", True)
+    sd = {k: v.detach() for k, v in seg.state.model.state_dict().items()}
+    params, stats = load_reference_checkpoint(sd, "resnet34", True)
+    jm = JaxUNet(backbone="resnet34", use_attention=True)
+    state = type("S", (), {"params": params, "batch_stats": stats})
+    from segtpu_torch.data.preprocess import normalize_canonical
+    x = normalize_canonical(torch.from_numpy(imgs[:2]))[:, 0, :, :, None]
+    x = x.numpy()
+    got = seg.predict_proba(imgs[:2], tta=True)
+    np.testing.assert_allclose(
+        got, np.asarray(jax_tta_predict_proba(jm, state, x)), atol=1e-4)
+    sweep = seg.sweep_threshold(imgs[:2], masks[:2], tta=True)
+    assert len(sweep["thresholds"]) == 19
+    big = np.random.default_rng(3).random((48, 56)).astype(np.float32)
+    kw = dict(tile=32, overlap=16, batch_tiles=2, mode="blend")
+    np.testing.assert_allclose(seg.predict_tiled(big, **kw),
+                               jax_tiled_predict(jm, state, big, **kw),
+                               atol=1e-4)
 
 
 def test_segmenter_needs_cuda_unless_told_cpu():

@@ -399,3 +399,122 @@ def test_stream_window_fetches_once_and_syncs_nowhere_else(cuda):
     assert torch.isfinite(totals).all()
     # 2 folds × 2 epochs × 2 validation batches (3 images at B=2) × 4 gates
     assert launch_counts()["attention_gate"] - launched == 32
+
+
+# ------------------------------------- the ops, exported artifacts, TTA
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_ops_through_torch_ops_at_ragged_shapes(cuda, dtype):
+    """``torch.ops.segtpu_torch.*``, the entries an exported graph calls
+    without the Python wrappers, launch the kernels (and count them) at
+    B=1, 17² and odd widths, against the plain versions."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    r = lambda *s: torch.randn(*s, generator=gen, device=cuda)
+    g, x = r(1, 17, 17, 24).to(dtype), r(1, 17, 17, 40).to(dtype)
+    gate = [g, x, (r(24, 8) / 24 ** 0.5).to(dtype),
+            (r(40, 8) / 40 ** 0.5).to(dtype), r(8) * 0.1,
+            (r(8) / 8 ** 0.5).to(dtype), torch.full((1,), 0.1, device=cuda)]
+    ups = [r(1, 17, 17, 20).to(dtype), (r(20, 2, 2, 12) / 20 ** 0.5).to(
+        dtype), r(12) * 0.1, r(1, 34, 34, 7).to(dtype)]
+    before = launch_counts()
+    out_g = torch.ops.segtpu_torch.attention_gate(*gate)
+    out_u = torch.ops.segtpu_torch.upsample2x_concat(*ups)
+    after = launch_counts()
+    assert after["attention_gate"] == before["attention_gate"] + 1
+    assert after["upsample2x_concat"] == before["upsample2x_concat"] + 1
+    _close(out_g, attention_gate_plain(*[t.float() for t in gate]), dtype)
+    _close(out_u, upsample2x_concat_plain(*[t.float() for t in ups]), dtype)
+    # the CUDA implementation checks its operands itself: a strided view
+    # is refused before any launch
+    with pytest.raises(ValueError, match="NHWC-contiguous"):
+        torch.ops.segtpu_torch.attention_gate(
+            g, x.transpose(1, 2), *gate[2:])
+    assert launch_counts() == after
+
+
+def test_fused_gate_backpropagates_on_the_card(cuda):
+    """An eval-mode gate forward with grad enabled reaches its inputs'
+    gradients through the op's registered backward (the plain version's
+    gradient), equal to the unfused gate's."""
+    from segtpu_torch.models.attention import AttentionGate
+    torch.manual_seed(0)
+    gate = AttentionGate(16, 24, 8, device=cuda).eval()
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    g = torch.randn(2, 16, 5, 7, generator=gen, device=cuda).contiguous(
+        memory_format=torch.channels_last)
+    x = torch.randn(2, 24, 5, 7, generator=gen, device=cuda).contiguous(
+        memory_format=torch.channels_last)
+    grads = []
+    for fused in (True, False):
+        xr = x.clone().requires_grad_(True)
+        gate(g, xr, fused=fused).square().sum().backward()
+        grads.append(xr.grad)
+    _close(grads[0], grads[1].float(), torch.float32)
+
+
+def _tiny_model(cuda, use_attention, **kw):
+    from segtpu_torch.models.unet import UNetWithBackbone
+    model = UNetWithBackbone(backbone="resnet_tiny",
+                             use_attention=use_attention, device=cuda, **kw)
+    return model.reset_parameters(torch.Generator().manual_seed(0)).eval()
+
+
+@pytest.mark.parametrize("use_attention", [True, False],
+                         ids=["attention", "no-attention"])
+def test_artifact_exported_on_the_card_launches_its_kernels(cuda, tmp_path,
+                                                            use_attention):
+    """An artifact exported and reloaded on the card launches 4 gates per
+    forward (attention) or one upsample per frozen fused level (without),
+    matches the live model, and loads and serves on the CPU too."""
+    import numpy as np
+    from segtpu_torch.infer.export import ServingModel, save_serving
+    from segtpu_torch.infer.predict import predict_proba
+    model = _tiny_model(cuda, use_attention, fuse_min_work=16)
+    path = save_serving(str(tmp_path / "art"), model, (32, 32))
+    sm = ServingModel(path, device="cuda")
+    levels = sm.meta["fused_upsample_levels"]
+    assert levels == ([] if use_attention else [2, 3, 4])
+    x = np.random.default_rng(0).random((3, 32, 32, 1), np.float32)
+    before = launch_counts()
+    got = sm.predict_proba(x)
+    after = launch_counts()
+    assert after["attention_gate"] - before["attention_gate"] == (
+        4 if use_attention else 0)
+    assert after["upsample2x_concat"] - before["upsample2x_concat"] == len(
+        levels)
+    np.testing.assert_allclose(got, predict_proba(model, x, device="cuda"),
+                               atol=1e-5)
+    on_cpu = ServingModel(path, device="cpu").predict_proba(x)
+    np.testing.assert_allclose(on_cpu, got, atol=1e-4)
+
+
+def test_artifact_exported_on_the_cpu_launches_the_gate_on_the_card(
+        cuda, tmp_path):
+    import numpy as np
+    from segtpu_torch.infer.export import ServingModel, save_serving
+    model = _tiny_model(torch.device("cpu"), True)
+    path = save_serving(str(tmp_path / "cpu"), model, (32, 32),
+                        compute_dtype=torch.bfloat16)
+    x = np.random.default_rng(1).random((2, 32, 32, 1), np.float32)
+    want = ServingModel(path, device="cpu").predict_proba(x)
+    before = launch_counts()["attention_gate"]
+    got = ServingModel(path, device="cuda").predict_proba(x)
+    assert launch_counts()["attention_gate"] - before == 4
+    # the card's and the CPU's bf16 differ in rounding order only
+    np.testing.assert_allclose(got, want, atol=2.0 ** -6)
+
+
+def test_tta_batch_of_rotated_views_reaches_the_gate(cuda):
+    """D4 TTA on the card: every rotated, transposed or flipped batch
+    reaches the gate kernel (8 forwards × 4 launches) without the
+    contiguity error, and equals the unfused gate's TTA."""
+    import numpy as np
+    from segtpu_torch.infer.tta import tta_predict_proba
+    model = _tiny_model(cuda, True)
+    x = np.random.default_rng(2).random((2, 32, 32, 1), np.float32)
+    before = launch_counts()["attention_gate"]
+    fused = tta_predict_proba(model, x, device="cuda")
+    assert launch_counts()["attention_gate"] - before == 32
+    model.fuse_gate = False
+    plain = tta_predict_proba(model, x, device="cuda")
+    np.testing.assert_allclose(fused, plain, atol=1e-4)

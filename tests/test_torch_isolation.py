@@ -42,7 +42,8 @@ def test_sources_cover_every_port_module():
     training path, the data layer, the pretrained-encoder converter, the
     K-fold harness, fold-parallel training, the drivers (forward selection
     too), the CLI, the metrics log, TensorBoard writer, profiling hooks and
-    plots, so the tests here check them too."""
+    plots, tiled and TTA inference, the serving export, the HTTP server
+    and its tool, so the tests here check them too."""
     names = {str(p.relative_to(ROOT)) for p in SOURCES}
     for mod in ("kernels/attention_gate.py", "kernels/fused_conv.py",
                 "kernels/fused_block.py", "tools/__init__.py",
@@ -58,7 +59,9 @@ def test_sources_cover_every_port_module():
                 "experiments/augmentation_amount.py", "cli.py",
                 "core/logging.py", "core/tboard.py", "core/profiling.py",
                 "eval/fold_parallel.py", "experiments/forward_selection.py",
-                "viz/plots.py", "tools/experiment_runs.py"):
+                "viz/plots.py", "tools/experiment_runs.py",
+                "infer/tiled.py", "infer/tta.py", "infer/export.py",
+                "infer/serve.py", "tools/serve.py"):
         assert f"segtpu_torch/{mod}" in names
     assert "chip_smoke.py" in names
 
