@@ -142,9 +142,31 @@ it, or when any phase fails:
    attention, and ``make_server(tiled=True)`` answering a 512² batch and
    a 2048² slide with the ``ServingModel``'s own arrays; ``tiled``,
    ``tta`` and ``serving_tiled`` lines;
-12. one JSON line ``{"kernels": [...]}`` (gate and upsample launches
-   count every path above; their sums over the other encoders' shapes
-   under ``encoders``), then the card line, then the result line
+12. the fused training run (o), cuDNN deterministic: (o1) the flagship
+   (resnet34, attention, 512², bf16, B=8; 20 training images, two full
+   batches and a remainder of 4, and 4 validation images) through
+   ``train_model`` with ``fused_run`` and stepwise, the plateau
+   scheduler cutting unless the IoU grows elevenfold, early stopping
+   after epoch 2 of 3: epochs run, LR history and best epoch equal,
+   per-epoch losses within 1e-4 of themselves, the two models'
+   probabilities within 0.05, 4 gate launches per replayed validation
+   forward and warm-up call, a second run of equal shapes replaying
+   without a new capture, the host syncs per epoch (the runner's count
+   and ``set_sync_debug_mode``'s), a profiled replayed epoch naming
+   ``gate_bf16_kernel`` once per gate call, replayed and stepwise steps
+   on one resident batch (CUDA events, profiled busy share); (o2) the
+   no-attention flagship, whose replayed validation forwards launch the
+   upsample as often as ``_fused_level`` predicts; (o3) adam, adamw, sgd
+   and lamb under capture at 64² in f32 against stepwise, 3 epochs with
+   LR cuts; (o4) the models handed back by a fused run (one of them with
+   folds cached before it) against themselves refolded; (o5) a 2-fold
+   CV of (m1)'s configuration with ``fused_run``: one capture for both
+   folds, each fold within 1e-2 of the stepwise CV; a ``fused {...}``
+   line;
+13. one JSON line ``{"kernels": [...]}`` (gate and upsample launches
+   count every path above, the replays of the fused runs' graphs
+   included; their sums over the other encoders' shapes under
+   ``encoders``), then the card line, then the result line
    ``{"ok": true, "device": {...}}``.
 
 The weights are random, made from a fixed seed; the BatchNorm running
@@ -2814,6 +2836,491 @@ def phase_inference(device="cuda", size=SIZE, slide_size=SLIDE,
         "upsample2x_concat": served["launches"]["upsample2x_concat"]}}
 
 
+# ---------------------------------------------- (o) the fused training run
+
+# (o1): the flagship of the training phase (resnet34, attention, 512²,
+# bf16, B=8) through ``train_model`` with ``fused_run`` and stepwise, cuDNN
+# deterministic: 20 training images (two full batches and a remainder of
+# 4) and 4 validation images (one remainder batch). The plateau scheduler
+# cuts unless the validation IoU grows elevenfold (patience 0, relative
+# threshold 10); early stopping stops after epoch 2 of at most 3
+# (min_delta 0.9, patience 1): every decision sits far from its
+# threshold.
+FUSED_TRAIN, FUSED_VAL = 20, 4
+FUSED_CONFIG = dict(TRAIN_CONFIG, num_epochs=3, early_stopping_patience=1,
+                    early_stopping_min_delta=0.9)
+FUSED_PLATEAU = dict(patience=0, threshold=10.0)
+# Fused against stepwise on the card: the same kernels on the same batches
+# (cuDNN deterministic) and the same ``DeviceOptimizer.step()``, eager in
+# one and replayed in the other, so the two runs should agree bit for bit;
+# the bars are the ones a run that parts by rounding alone would still
+# meet: per-epoch losses within 1e-4 of themselves (the JAX package's
+# fused-run test holds its first epoch's losses within 2e-4 of its
+# stepwise loop's), thresholded metrics within TOL_TRAIN_IOU, the two
+# trained models' probabilities within §2's 0.05. (Updates that part by
+# an ulp per step part this run by up to 9% of a bf16 loss in two epochs:
+# no rounding-level bar holds two runs to each other unless their updates
+# agree exactly.) The replays are also held, bit for bit, to the same
+# runner's steps called eagerly.
+TOL_FUSED_LOSS = 1e-4
+# (o2): the no-attention flagship, 16 training and 12 validation images
+# at B=8, 1 epoch: both validation batches (8 and the remainder of 4) pass
+# ``fuse_min_work`` at level 2, so each replayed validation forward
+# launches the upsample.
+FUSED_UPSAMPLE_IMAGES = (16, 12)
+# (o3): every optimizer under capture, resnet_tiny at 64², f32 (TF32 off),
+# 10 training and 6 validation images at B=4, 3 epochs, each run from one
+# model trained FUSED_PRETRAIN epochs stepwise beforehand (validation IoU
+# above 1/11 from its first epoch on): with FUSED_PLATEAU the scheduler
+# then cuts after epochs 2 and 3 whatever the IoU does (no IoU exceeds 11
+# times one above 1/11), so epoch 3 trains at half the first LR.
+FUSED_PRETRAIN = 6
+FUSED_OPTIMIZERS = ("adam", "adamw", "sgd", "lamb")
+FUSED_TINY = dict(backbone="resnet_tiny", use_attention=True,
+                  img_size=(64, 64), batch_size=4, loss_fn="combo",
+                  num_epochs=3, seed=SEED, verbose=False)
+
+
+def _fused_fit(images, masks, n_train, config, fused, device,
+               initial_state=None, plateau=FUSED_PLATEAU):
+    """``train_model`` on the first ``n_train`` images, validated on the
+    rest, with a plateau scheduler at ``plateau``; returns (result, host
+    seconds, peak GiB, launch counts)."""
+    from segtpu_torch.kernels import launch_counts, reset_launch_counts
+    from segtpu_torch.train.loop import train_model
+    from segtpu_torch.train.optim import ReduceLROnPlateau
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = train_model(
+        None, images[:n_train], masks[:n_train], images[n_train:],
+        masks[n_train:], num_epochs=config["num_epochs"], device=device,
+        config=dict(config, fused_run=fused),
+        scheduler=ReduceLROnPlateau(config.get("learning_rate", 1e-3),
+                                    **plateau),
+        initial_state=initial_state)
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated() / 2 ** 30, launch_counts())
+
+
+def _loss_err(a, b) -> float:
+    """The largest relative difference of two runs' per-epoch training
+    and validation losses."""
+    return max(abs(x["loss"] - y["loss"]) / abs(y["loss"])
+               for key in ("train_metrics", "val_metrics")
+               for x, y in zip(a[key], b[key]))
+
+
+def _metric_err(a, b) -> float:
+    return max(abs(x[k] - y[k]) for key in ("train_metrics", "val_metrics")
+               for x, y in zip(a[key], b[key])
+               for k in ("iou", "f1", "precision", "recall", "accuracy"))
+
+
+def _same_decisions(a, b) -> bool:
+    return (len(a["val_metrics"]) == len(b["val_metrics"])
+            and a["lr_history"] == b["lr_history"]
+            and a["best_epoch"] == b["best_epoch"])
+
+
+def _bf16_probs(model, x) -> torch.Tensor:
+    """The model's eager eval forward under bf16 autocast, probabilities."""
+    model.eval()
+    with torch.inference_mode(), torch.autocast("cuda",
+                                                dtype=torch.bfloat16):
+        return torch.sigmoid(model(x).float())
+
+
+def _last_runner():
+    from segtpu_torch.train import fused_run
+    return fused_run.RUNNERS[fused_run.RUNNERS.keys()[-1]]
+
+
+def _replay_ms(runner, x, y, steps: int) -> list:
+    """CUDA-event ms of ``steps`` replays of the full training step on one
+    resident batch, enqueued back to back, after one untimed replay (the
+    ``train`` line's method, ``_step_ms``)."""
+    runner.inputs["train_full"][0].copy_(x)
+    runner.inputs["train_full"][1].copy_(y)
+    runner.replay("train_full")
+    torch.cuda.synchronize()
+    spans = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(steps)]
+    for start, end in spans:
+        start.record()
+        runner.replay("train_full")
+        end.record()
+    torch.cuda.synchronize()
+    return [start.elapsed_time(end) for start, end in spans]
+
+
+def _kernel_events(fn) -> dict:
+    """{kernel name: launches} of the device events ``torch.profiler``
+    records over one call of ``fn``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            counts[e.name] = counts.get(e.name, 0) + 1
+    return counts
+
+
+def _sync_count(fn) -> int:
+    """Synchronising CUDA operations in one call of ``fn``, as
+    ``torch.cuda.set_sync_debug_mode`` reports them."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in seen)
+
+
+def _fused_flagship(device, backbone, size) -> dict:
+    """(o1) and (o4)."""
+    from segtpu_torch.data.preprocess import normalize_canonical
+    from segtpu_torch.kernels import launch_counts, reset_launch_counts
+    from segtpu_torch.models.attention import invalidate_folds
+    from segtpu_torch.train import fused_run
+    from segtpu_torch.train.engine import TrainState, get_engine
+    from segtpu_torch.train.loop import _materialize
+    rng = np.random.default_rng(SEED + 11)
+    imgs, masks = _blob_images(FUSED_TRAIN + FUSED_VAL, size, rng)
+    config = dict(FUSED_CONFIG, img_size=(size, size), backbone=backbone,
+                  use_attention=True)
+    b = config["batch_size"]
+    fused_run.RUNNERS.clear()
+    fused, fused_s, fused_gib, fused_counts = _fused_fit(
+        imgs, masks, FUSED_TRAIN, config, True, device)
+    runner = _last_runner()
+    warm = dict(runner.stats["warmup_calls"])
+    capture_s = runner.stats["capture_s"]
+    step, step_s, step_gib, step_counts = _fused_fit(
+        imgs, masks, FUSED_TRAIN, config, False, device)
+    epochs = len(fused["val_metrics"])
+    val_forwards = -(-FUSED_VAL // b)
+    loss_err, metric_err = _loss_err(fused, step), _metric_err(fused, step)
+    check(_same_decisions(fused, step) and epochs == 2,
+          f"fused (o1): epochs run {epochs} / {len(step['val_metrics'])} "
+          f"(want 2), LR history {fused['lr_history']} / "
+          f"{step['lr_history']}, best epoch {fused['best_epoch']} / "
+          f"{step['best_epoch']}: fused / stepwise equal")
+    check(loss_err <= TOL_FUSED_LOSS and metric_err <= TOL_TRAIN_IOU,
+          f"fused (o1): per-epoch losses within {loss_err:.3g} of the "
+          f"stepwise run's (tol {TOL_FUSED_LOSS}, relative), thresholded "
+          f"metrics within {metric_err:.3g} (tol {TOL_TRAIN_IOU})")
+    x = normalize_canonical(torch.from_numpy(imgs[FUSED_TRAIN:]).to(
+        device)).contiguous(memory_format=torch.channels_last)
+    prob_err = (_bf16_probs(fused["state"].model, x)
+                - _bf16_probs(step["state"].model, x)).abs().max().item()
+    check(prob_err <= TOL_PROBS,
+          f"fused (o1): the two trained models' bf16 probabilities within "
+          f"{prob_err:.3g} (tol {TOL_PROBS})")
+    warm_val = warm.get("eval_full", 0) + warm.get("eval_rem", 0)
+    gate_f, gate_s = fused_counts["attention_gate"], \
+        step_counts["attention_gate"]
+    check(gate_f == 4 * (epochs * val_forwards + warm_val)
+          and gate_s == 4 * epochs * val_forwards,
+          f"fused (o1): attention_gate launched {gate_f} times in the fused "
+          f"run ({epochs} epochs × {val_forwards} replayed validation "
+          f"forwards + {warm_val} warm-up calls, 4 each), {gate_s} stepwise")
+
+    # (o4) and the cache: a second run of equal shapes from a model whose
+    # gates hold cached folds replays without capturing
+    engine = get_engine(config, device=device)
+    model0 = engine.build_model().reset_parameters(
+        torch.Generator().manual_seed(SEED))
+    _bf16_probs(model0, x)                           # caches the folds
+    hit, hit_s, hit_gib, hit_counts = _fused_fit(
+        imgs, masks, FUSED_TRAIN, config, True, device,
+        initial_state=TrainState(model0))
+    hit_epochs = len(hit["val_metrics"])
+    check(runner.stats["captures"] == 1 and runner.stats["runs"] == 2
+          and len(fused_run.RUNNERS) == 1
+          and hit_counts["attention_gate"] == 4 * hit_epochs * val_forwards,
+          f"fused (o1): a second run of equal shapes: {runner.stats['runs']}"
+          f" runs, {runner.stats['captures']} capture, "
+          f"{len(fused_run.RUNNERS)} runner; attention_gate launched "
+          f"{hit_counts['attention_gate']} times (4 per replayed validation "
+          f"forward: {4 * hit_epochs * val_forwards})")
+    refold = {}
+    for name, model in (("fit", fused["state"].model), ("next_run", model0)):
+        cached = _bf16_probs(model, x)
+        invalidate_folds(model)
+        fresh = _bf16_probs(model, x)
+        refold[name] = (cached - fresh).abs().max().item()
+    check(hit["state"].model is model0
+          and max(refold.values()) <= TOL_BF16,
+          f"fused (o4): eager bf16 probabilities of the models handed back "
+          f"against the same models with every gate refolded: {refold} "
+          f"(tol {TOL_BF16})")
+
+    # host reads per epoch: the runner's count and set_sync_debug_mode's,
+    # over ``run_training_fused`` on resident tensors
+    ti, tm = _materialize(imgs[:FUSED_TRAIN], masks[:FUSED_TRAIN],
+                          device=device)
+    vi, vm = _materialize(imgs[FUSED_TRAIN:], masks[FUSED_TRAIN:],
+                          device=device)
+
+    def direct(num_epochs, state):
+        return fused_run.run_training_fused(
+            engine, state, ti, tm, vi, vm, batch_size=b,
+            num_epochs=num_epochs, lr0=1e-3,
+            generator=torch.Generator(device).manual_seed(SEED + 1),
+            scheduler_params=dict(factor=0.5, min_lr=0.0, **FUSED_PLATEAU),
+            es_patience=config["early_stopping_patience"],
+            es_min_delta=config["early_stopping_min_delta"])
+
+    new_state = lambda: engine.init_state(
+        torch.Generator().manual_seed(SEED), 1e-3, 1e-5)
+    reads0, box, state = runner.stats["host_reads"], {}, new_state()
+    reset_launch_counts()
+    syncs = _sync_count(lambda: box.update(out=direct(3, state)))
+    reads = runner.stats["host_reads"] - reads0
+    sync_epochs = box["out"]["epochs_ran"]
+    check(syncs == reads == sync_epochs + 1 and runner.stats["captures"] == 1,
+          f"fused (o1): {syncs} synchronising operations "
+          f"(set_sync_debug_mode) in a run of {sync_epochs} epochs, the "
+          f"runner's own count {reads}: one flag read per epoch and one "
+          f"fetch at the end")
+
+    # the replays against the same steps called eagerly, from the same state
+    from segtpu_torch.data.loader import DeviceDataLoader
+    eager_state = new_state()
+    eager = fused_run.FusedRunner(engine, eager_state, FUSED_TRAIN, FUSED_VAL,
+                                  graphs=False).run(
+        eager_state, DeviceDataLoader(ti, tm, b),
+        DeviceDataLoader(vi, vm, b, shuffle=False),
+        torch.Generator(device).manual_seed(SEED + 1), 3, 1e-3,
+        dict(factor=0.5, min_lr=0.0, **FUSED_PLATEAU),
+        config["early_stopping_patience"],
+        config["early_stopping_min_delta"])
+    replayed = box["out"]
+    same = all(replayed[k] == eager[k] for k in (
+        "train_history", "val_history", "lr_history", "best_epoch"))
+    w_r = replayed["final_state"].model.state_dict()
+    w_e = eager["final_state"].model.state_dict()
+    same_w = all(torch.equal(w_r[k], w_e[k]) for k in w_r)
+    check(same and same_w,
+          f"fused (o1): the replayed run against the same steps called "
+          f"eagerly (graphs=False) from the same state: histories equal "
+          f"{same}, final weights equal {same_w}")
+
+    # a profiled replayed epoch names the gate kernel once per gate call
+    state = new_state()
+    events = _kernel_events(lambda: direct(1, state))
+    gate_events = sum(n for k, n in events.items() if "gate_bf16_kernel" in k)
+    direct_gate = launch_counts()["attention_gate"]
+    check(gate_events == 4 * val_forwards,
+          f"fused (o1): a profiled replayed epoch shows gate_bf16_kernel "
+          f"{gate_events} times (4 per validation forward: "
+          f"{4 * val_forwards})")
+
+    # the step: replayed and stepwise on one resident batch
+    xs = normalize_canonical(torch.from_numpy(imgs[:b]).to(device)).contiguous(
+        memory_format=torch.channels_last)
+    ys = torch.from_numpy(masks[:b]).to(device)[:, None].float()
+    replay_ms = _replay_ms(runner, xs, ys, TIMED_STEPS)
+    state = step["state"]
+    stepwise_ms = _step_ms(engine, state, xs, ys, TIMED_STEPS)
+    prof = {}
+    for name, fn in (("replayed", lambda: runner.replay("train_full")),
+                     ("stepwise", lambda: engine.train_step(state, xs, ys))):
+        try:
+            p = _profile_calls(fn, 3)
+            prof[name] = {k: p[k] for k in ("profile_busy_share",
+                                            "profile_busy_ms")}
+        except Exception as exc:
+            prof[name] = {"profile_error": repr(exc)}
+    check(all("profile_busy_share" in p for p in prof.values()),
+          f"fused (o1): profiled replayed and stepwise steps ({prof})")
+    med = lambda v: statistics.median(v)
+    quart = lambda v: statistics.quantiles(v, n=10)
+    return dict(
+        model="attention", backbone=backbone, size=size, batch=b,
+        train_images=FUSED_TRAIN, val_images=FUSED_VAL, epochs=epochs,
+        lr_history=fused["lr_history"], best_epoch=fused["best_epoch"],
+        loss_rel_err=loss_err, metric_err=metric_err, probs_err=prob_err,
+        refold_err=refold,
+        step_ms={"replayed": med(replay_ms), "stepwise": med(stepwise_ms)},
+        step_ms_p10_p90={"replayed": [quart(replay_ms)[0],
+                                      quart(replay_ms)[-1]],
+                         "stepwise": [quart(stepwise_ms)[0],
+                                      quart(stepwise_ms)[-1]]},
+        timed_steps=TIMED_STEPS, profile=prof, capture_s=capture_s,
+        warmup_calls=warm,
+        s_per_epoch={"fused_first": fused_s / epochs,
+                     "fused_cached": hit_s / hit_epochs,
+                     "stepwise": step_s / len(step["val_metrics"])},
+        fit_s={"fused_first": fused_s, "fused_cached": hit_s,
+               "stepwise": step_s},
+        peak_gib={"fused_first": fused_gib, "fused_cached": hit_gib,
+                  "stepwise": step_gib},
+        host_syncs={"debug_mode": syncs, "runner": reads,
+                    "epochs": sync_epochs},
+        replays_equal_eager=same and same_w,
+        gate_events_per_epoch=gate_events,
+        launches={"attention_gate": gate_f + gate_s
+                  + hit_counts["attention_gate"] + direct_gate})
+
+
+def _fused_upsample(device, backbone, size) -> dict:
+    """(o2): the upsample kernel from replayed validation forwards."""
+    from segtpu_torch.train import fused_run
+    n_train, n_val = FUSED_UPSAMPLE_IMAGES
+    rng = np.random.default_rng(SEED + 12)
+    imgs, masks = _blob_images(n_train + n_val, size, rng)
+    config = dict(FUSED_CONFIG, img_size=(size, size), backbone=backbone,
+                  use_attention=False, num_epochs=1)
+    b = config["batch_size"]
+    fused_run.RUNNERS.clear()
+    fused, _, _, counts = _fused_fit(imgs, masks, n_train, config, True,
+                                     device)
+    runner = _last_runner()
+    step, _, _, step_counts = _fused_fit(imgs, masks, n_train, config, False,
+                                         device)
+    warm = runner.stats["warmup_calls"]
+    replays = runner.stats["replays"]
+    model = fused["state"].model.eval()
+    per = {kind: len(decoder_shapes(model, nb, size)[1])
+           for kind, nb in (("eval_full", b), ("eval_rem", n_val % b))}
+    want = sum(n * (replays.get(kind, 0) + warm.get(kind, 0))
+               for kind, n in per.items())
+    ups = counts["upsample2x_concat"]
+    check(ups == want and min(per.values()) > 0,
+          f"fused (o2): upsample2x_concat launched {ups} times from the "
+          f"fused run's validation forwards; _fused_level predicts {want} "
+          f"({per} per forward at B={b} / {n_val % b}, replays {replays}, "
+          f"warm-up {warm})")
+    loss_err, metric_err = _loss_err(fused, step), _metric_err(fused, step)
+    check(_same_decisions(fused, step) and loss_err <= TOL_FUSED_LOSS
+          and metric_err <= TOL_TRAIN_IOU,
+          f"fused (o2): validation and training metrics of the fused run "
+          f"against the stepwise run's: losses {loss_err:.3g} (tol "
+          f"{TOL_FUSED_LOSS}, relative), thresholded {metric_err:.3g} (tol "
+          f"{TOL_TRAIN_IOU})")
+    return {"upsample": dict(per_forward=per, launches=ups, want=want,
+                             loss_rel_err=loss_err, metric_err=metric_err),
+            "upsample_launches": ups + step_counts["upsample2x_concat"]}
+
+
+def _fused_optimizers(device) -> dict:
+    """(o3): every optimizer's update under capture against stepwise."""
+    from segtpu_torch.train import fused_run
+    from segtpu_torch.train.engine import TrainState
+    rng = np.random.default_rng(SEED + 13)
+    imgs, masks = _blob_images(16, 64, rng)
+    pre, _, _, c0 = _fused_fit(imgs, masks, 10,
+                               dict(FUSED_TINY, num_epochs=FUSED_PRETRAIN),
+                               False, device,
+                               plateau=dict(patience=FUSED_PRETRAIN))
+    lr0 = FUSED_TINY.get("learning_rate", 1e-3)
+    res, gate = {}, c0["attention_gate"]
+    for name in FUSED_OPTIMIZERS:
+        fused_run.RUNNERS.clear()
+        config = dict(FUSED_TINY, optimizer=name)
+        fused, _, _, c1 = _fused_fit(
+            imgs, masks, 10, config, True, device,
+            initial_state=TrainState(copy.deepcopy(pre["state"].model)))
+        step, _, _, c2 = _fused_fit(
+            imgs, masks, 10, config, False, device,
+            initial_state=TrainState(copy.deepcopy(pre["state"].model)))
+        gate += c1["attention_gate"] + c2["attention_gate"]
+        err = _loss_err(fused, step)
+        check(_same_decisions(fused, step)
+              and fused["lr_history"] == [lr0, lr0 / 2, lr0 / 4]
+              and err <= TOL_FUSED_LOSS,
+              f"fused (o3): {name} under capture: LR history "
+              f"{fused['lr_history']} / {step['lr_history']} (want "
+              f"{[lr0, lr0 / 2, lr0 / 4]}: epoch 3 at a cut LR), per-epoch "
+              f"losses within {err:.3g} of stepwise (tol {TOL_FUSED_LOSS}, "
+              f"relative)")
+        res[name] = dict(loss_rel_err=err, lr_history=fused["lr_history"],
+                         val_iou=[m["iou"] for m in fused["val_metrics"]])
+    return {"optimizers": res, "optimizer_gate_launches": gate}
+
+
+def _fused_cv(device, size=128) -> dict:
+    """(o5): a 2-fold CV of the flagship with ``fused_run`` against the
+    stepwise CV, on the data phase's TIFFs and (m1)'s configuration."""
+    import tempfile
+    from segtpu_torch.eval.cross_validation import CrossValidator
+    from segtpu_torch.kernels import launch_counts, reset_launch_counts
+    from segtpu_torch.train import fused_run
+    out, gate = {}, 0
+    with tempfile.TemporaryDirectory(prefix="segtpu-torch-fused-cv-") as root:
+        write_data_dir(root)
+        cfg = dict(FOLD_CONFIG, data_dir=root, img_size=(size, size))
+        fused_run.RUNNERS.clear()
+        for fused in (True, False):
+            v = CrossValidator(root, "W", n_splits=cfg["n_splits"],
+                               random_state=cfg["random_state"],
+                               augmentations_per_image=cfg[
+                                   "augmentations_per_image"],
+                               verbose=False, device=device)
+            v._canonical(cfg["img_size"])       # decoded before the clock
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = v.cross_validate_single_model(None, dict(cfg,
+                                                         fused_run=fused))
+            torch.cuda.synchronize()
+            out[fused] = (r["fold_results"], time.perf_counter() - t0)
+            gate += launch_counts()["attention_gate"]
+    runners = fused_run.RUNNERS.keys()
+    stats = fused_run.RUNNERS[runners[-1]].stats if runners else {}
+    err = max(abs(a[k] - b_[k]) for a, b_ in zip(out[True][0], out[False][0])
+              for k in ("iou", "loss"))
+    k = cfg["n_splits"]
+    check(len(runners) == 1 and stats.get("runs") == k
+          and stats.get("captures") == 1,
+          f"fused (o5): {k} folds of equal size: {len(runners)} runner, "
+          f"{stats.get('runs')} runs, {stats.get('captures')} capture")
+    check(len(out[True][0]) == k and err <= TOL_FOLDS,
+          f"fused (o5): each fold's final IoU and loss within {err:.3g} of "
+          f"the stepwise CV's (tol {TOL_FOLDS})")
+    return {"cv": dict(max_err=err, seconds={"fused": out[True][1],
+                                             "stepwise": out[False][1]},
+                       fold_iou={"fused": [f["iou"] for f in out[True][0]],
+                                 "stepwise": [f["iou"]
+                                              for f in out[False][0]]}),
+            "cv_gate_launches": gate}
+
+
+def phase_fused(device="cuda", backbone="resnet34", size=SIZE) -> dict:
+    """(o1)-(o5) of the module docstring and the ``fused`` line."""
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        res = _fused_flagship(device, backbone, size)
+        res.update(_fused_upsample(device, backbone, size))
+        res.update(_fused_optimizers(device))
+        res.update(_fused_cv(device))
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+    res["launches"] = {
+        "attention_gate": res["launches"]["attention_gate"]
+        + res.pop("optimizer_gate_launches") + res.pop("cv_gate_launches"),
+        "upsample2x_concat": res.pop("upsample_launches")}
+    res["cudnn_deterministic"] = True
+    print("fused " + json.dumps(res), flush=True)
+    return res
+
+
 KERNEL_META = {
     "attention_gate": dict(
         source="segtpu_torch/csrc/attention_gate.cu",
@@ -2847,6 +3354,7 @@ def main() -> int:
     folds = phase_folds()
     selection = phase_selection()
     inference = phase_inference()
+    fused = phase_fused()
     # each kernel's launches on its own main paths: the serving models
     # and the training runs that run it, or the bench entry points for the
     # conv and the pair
@@ -2857,14 +3365,16 @@ def main() -> int:
                 + grid["launches"]["attention_gate"]
                 + folds["launches"]["attention_gate"]
                 + selection["launches"]["attention_gate"]
-                + inference["launches"]["attention_gate"],
+                + inference["launches"]["attention_gate"]
+                + fused["launches"]["attention_gate"],
                 "upsample2x_concat": served["upsample2x_concat"]["launches"]
                 + trained["upsample_launches_no_attention"]
                 + encoders["launches"]["upsample2x_concat"]
                 + grid["launches"]["upsample2x_concat"]
                 + folds["launches"]["upsample2x_concat"]
                 + selection["launches"]["upsample2x_concat"]
-                + inference["launches"]["upsample2x_concat"],
+                + inference["launches"]["upsample2x_concat"]
+                + fused["launches"]["upsample2x_concat"],
                 "conv3x3_bn_relu": benched["conv3x3_bn_relu"],
                 "conv_pair_bn_relu": benched["conv_pair_bn_relu"]}
 

@@ -1,11 +1,13 @@
 """Hand-written Hopper kernels of the port, each with its plain PyTorch
 version and a launch count (``<wrapper>.launches``), plus the helpers that
-read and reset the counts."""
+read and reset the counts. A launch captured into a ``CountedGraph`` is
+counted at each of its replays (``_build.count_launch``)."""
 
 from __future__ import annotations
 
 from typing import Dict
 
+from segtpu_torch.kernels._build import CountedGraph
 from segtpu_torch.kernels.attention_gate import attention_gate
 from segtpu_torch.kernels.fused_block import conv_pair_bn_relu
 from segtpu_torch.kernels.fused_conv import conv3x3_bn_relu, upsample2x_concat

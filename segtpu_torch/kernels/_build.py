@@ -6,17 +6,24 @@ Each ``csrc/<name>.cu`` is compiled at first use by its own ``nvcc`` into
 sources start together), for ``sm_90a``, with a plain C interface that the
 wrappers call through ``ctypes``. A library is rebuilt when it is older
 than its source or a shared header. Nothing is built or loaded at import.
+
+Launch counts: a wrapper calls ``count_launch`` where it launches its
+kernel. A launch on a stream that is capturing a CUDA graph is recorded,
+not run: it is tallied for the graph being captured through
+``CountedGraph.capture``, and each ``CountedGraph.replay`` adds that
+tally to the wrappers' counts, so the counts include replays.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -137,3 +144,56 @@ def register_plain_autograd(op, plain) -> None:
         return tuple(next(grads) if t.requires_grad else None for t in ins)
 
     op.register_autograd(backward, setup_context=setup_context)
+
+
+# the launch tally of the graph that ``CountedGraph.capture`` is capturing
+_TALLY: Optional[dict] = None
+
+
+def stream_capturing() -> bool:
+    """Whether the current CUDA stream is capturing a graph (False on a
+    host without CUDA)."""
+    return torch.cuda.is_available() and \
+        torch.cuda.is_current_stream_capturing()
+
+
+def count_launch(wrapper) -> None:
+    """Count one launch of ``wrapper``'s kernel: at once, or, while the
+    stream captures a graph, in that graph's tally. A capture outside
+    ``CountedGraph.capture`` raises: its replays could not be counted."""
+    if not stream_capturing():
+        wrapper.launches += 1
+    elif _TALLY is None:
+        raise RuntimeError(
+            f"segtpu_torch kernel {wrapper.__name__} launched into a CUDA "
+            "graph captured outside segtpu_torch.kernels.CountedGraph, "
+            "whose replays its launch count cannot see")
+    else:
+        _TALLY[wrapper] = _TALLY.get(wrapper, 0) + 1
+
+
+class CountedGraph:
+    """A ``torch.cuda.CUDAGraph`` whose replays count the port's kernel
+    launches it captured: ``tally`` maps each wrapper to its launches per
+    replay."""
+
+    def __init__(self):
+        self.graph = torch.cuda.CUDAGraph()
+        self.tally: Dict = {}
+
+    @contextlib.contextmanager
+    def capture(self, pool=None):
+        """``torch.cuda.graph(self.graph, pool=pool)``, tallying the port's
+        kernel launches made inside it."""
+        global _TALLY
+        outer, _TALLY = _TALLY, self.tally
+        try:
+            with torch.cuda.graph(self.graph, pool=pool):
+                yield self
+        finally:
+            _TALLY = outer
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for wrapper, n in self.tally.items():
+            wrapper.launches += n

@@ -110,7 +110,7 @@ def _attention_gate_cuda(g, x, ag, ax, bh, apsi, bpsi):
                   x.numel() // x.shape[-1], g.shape[-1], x.shape[-1],
                   ag.shape[-1], stream)
     _build.check("attention_gate", code)
-    attention_gate.launches += 1
+    _build.count_launch(attention_gate)
     return out
 
 

@@ -130,7 +130,7 @@ def conv_pair_bn_relu(x, w1, s1, b1, w2, s2, b2, *, tile: int = 32):
                   s1.data_ptr(), b1.data_ptr(), w2.data_ptr(), s2.data_ptr(),
                   b2.data_ptr(), out.data_ptr(), bsz, h, wd, cin, c, stream)
     _build.check("conv_pair_bn_relu", code)
-    conv_pair_bn_relu.launches += 1
+    _build.count_launch(conv_pair_bn_relu)
     return out
 
 

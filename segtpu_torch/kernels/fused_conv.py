@@ -108,7 +108,7 @@ def _upsample2x_concat_cuda(x, wv, b, skip):
                   b.data_ptr(), skip.data_ptr(), out.data_ptr(),
                   bsz, h, w, cin, co, cs, stream)
     _build.check("upsample2x_concat", code)
-    upsample2x_concat.launches += 1
+    _build.count_launch(upsample2x_concat)
     return out
 
 
@@ -210,7 +210,7 @@ def conv3x3_bn_relu(x, w, scale, bias, *, tile: int = 64):
                   scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
                   bsz, h, wd, cin, cout, stream)
     _build.check("conv3x3_bn_relu", code)
-    conv3x3_bn_relu.launches += 1
+    _build.count_launch(conv3x3_bn_relu)
     return out
 
 

@@ -6,7 +6,11 @@ BatchNorms into two matmul weight sets and biases and runs the whole gate
 as one kernel launch (``segtpu_torch.kernels.attention_gate``). Exact up to
 fp reassociation; the module tree and state_dict are the same either way.
 Without grad the fold is cached on the module and redone only when a
-tensor it reads changed. The kernel's weight operands take the
+tensor it reads changed; while a CUDA graph is being captured it is never
+taken from the cache, so the graph folds at every replay (a replayed
+optimizer step changes the weights without bumping their version
+counters), and ``invalidate_folds`` drops the cache of every gate of a
+model whose weights were written that way. The kernel's weight operands take the
 activations' dtype, so that under ``torch.autocast`` (f32 parameters,
 bf16 activations, as flax's ``param_dtype``/``dtype``) the gate still runs
 as the kernel.
@@ -19,6 +23,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from segtpu_torch import resolve_device
+from segtpu_torch.kernels._build import stream_capturing
 from segtpu_torch.kernels.attention_gate import attention_gate
 from segtpu_torch.kernels.fused_conv import fold_bn
 from segtpu_torch.models.backbones import BatchNorm2d
@@ -69,8 +74,10 @@ class AttentionGate(nn.Module):
         train-mode forward's BatchNorm statistics), or the parameters'
         dtype or device or the operands' ``dtype`` changed. With grad enabled every call folds afresh, so a fold made
         under ``inference_mode`` never enters a graph that autograd
-        saves. A fold is a few dozen small tensor ops."""
-        if torch.is_grad_enabled():
+        saves; so does every call while the stream captures a CUDA graph,
+        whose replays must fold the weights of their moment. A fold is a
+        few dozen small tensor ops."""
+        if torch.is_grad_enabled() or stream_capturing():
             return self.fold(dtype)
         ins = [getattr(mod, name) for mod, name in self._fold_reads]
         key = (dtype, ins[0].dtype, ins[0].device,
@@ -78,6 +85,10 @@ class AttentionGate(nn.Module):
         if key != self._fold_key:
             self._folded, self._fold_key = self.fold(dtype), key
         return self._folded
+
+    def invalidate_fold(self) -> None:
+        """Drop the cached fold: the next ``folded`` folds afresh."""
+        self._fold_key, self._folded = None, None
 
     def fold(self, dtype=None):
         """Kernel operands (ag (Cg,F), ax (Cx,F), bh (F,), apsi (F,),
@@ -105,6 +116,16 @@ class AttentionGate(nn.Module):
                                  *self.folded(x.dtype))
             return out.permute(0, 3, 1, 2)
         return x * self.psi(F.relu(self.W_g(g) + self.W_x(x)))
+
+
+def invalidate_folds(model: nn.Module) -> nn.Module:
+    """Drop the cached fold of every ``AttentionGate`` in ``model``: for
+    weights written where their version counters do not move (a replayed
+    CUDA graph)."""
+    for mod in model.modules():
+        if isinstance(mod, AttentionGate):
+            mod.invalidate_fold()
+    return model
 
 
 class ChannelAttention(nn.Module):

@@ -383,8 +383,7 @@ class TrainEngine:
         weights, and an optimizer holding its moments."""
         model = self.load_fold(stack, k)
         opt = self.make_optimizer(model, lr, stack.weight_decay)
-        load_functional_state(opt, self.optimizer_name, model, stack.opt,
-                              k, stack.step)
+        load_functional_state(opt, model, stack.opt, k, stack.step)
         return TrainState(model, opt)
 
     def _stacked_step(self, stack: StackedFolds, images, masks, lrs

@@ -26,8 +26,12 @@ record every epoch's LR and train/val metrics, as the JAX package's loop
 does (``MetricsLogger`` records of kind "epoch", TensorBoard scalars
 ``lr``, ``train/*``, ``val/*`` and, with ``ema_decay``, ``ema_val/*``).
 
-Not ported yet, raising ``NotImplementedError`` that names its ROADMAP
-item: ``fused_run`` (A18).
+``config["fused_run"]`` runs the whole training run as replayed CUDA
+graphs (``train/fused_run.py``), with the stepwise loop's semantics, when
+the configuration is one it covers, as in the JAX package: no
+``warmup_epochs``, no ``ema_decay``, ``lr_schedule`` "plateau", and no
+scheduler or a max-mode ``ReduceLROnPlateau``. Any other configuration
+trains stepwise.
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ from segtpu_torch.data.loader import DeviceDataLoader
 from segtpu_torch.data.preprocess import load_canonical, normalize_canonical
 from segtpu_torch.models.torch_convert import (load_pretrained,
                                                resolve_encoder_checkpoint)
+from segtpu_torch.train import fused_run
 from segtpu_torch.train.engine import TrainEngine, TrainState, get_engine
 from segtpu_torch.train.optim import EarlyStopping, ReduceLROnPlateau
 
@@ -128,12 +133,6 @@ def _auto_final_bias(engine: TrainEngine, state: TrainState, config: Dict,
     return state
 
 
-def _not_ported(config: Dict) -> None:
-    if config.get("fused_run"):
-        raise NotImplementedError(
-            "config 'fused_run' is not ported yet (ROADMAP A18)")
-
-
 def _snapshot(model) -> Dict[str, torch.Tensor]:
     return {k: v.detach().clone() for k, v in model.state_dict().items()}
 
@@ -171,7 +170,6 @@ def train_model(model=None, train_images=(), train_masks=(),
     batch_size = int(config.get("batch_size", 2))
     verbose = config.get("verbose", True)
     seed = int(config.get("seed", 0))
-    _not_ported(config)
 
     if isinstance(model, TrainEngine):
         engine = model
@@ -224,6 +222,18 @@ def train_model(model=None, train_images=(), train_masks=(),
         state = engine.init_state(torch.Generator().manual_seed(seed), lr,
                                   wd)
         state = _auto_final_bias(engine, state, config, tr_masks, verbose)
+
+    # the whole run as replayed graphs (train/fused_run.py), for the
+    # configurations it covers: the standard (None or max-mode plateau)
+    # scheduler, no warmup, no EMA, as the JAX package routes it
+    if (config.get("fused_run") and not config.get("warmup_epochs")
+            and config.get("ema_decay") is None
+            and config.get("lr_schedule", "plateau") == "plateau" and (
+            scheduler is None or (isinstance(scheduler, ReduceLROnPlateau)
+                                  and scheduler.mode == "max"))):
+        return _train_model_fused(engine, state, tr_imgs, tr_masks, va_imgs,
+                                  va_masks, batch_size, num_epochs, lr,
+                                  scheduler, config, verbose, save_plots)
 
     train_metrics_history: List[Dict] = []
     val_metrics_history: List[Dict] = []
@@ -391,6 +401,80 @@ def train_model(model=None, train_images=(), train_masks=(),
         "training_time": time_elapsed,
         "final_train_metrics": train_metrics,
         "final_val_metrics": val_metrics,
+    }
+
+
+def _train_model_fused(engine, state, tr_imgs, tr_masks, va_imgs, va_masks,
+                       batch_size, num_epochs, lr, scheduler, config,
+                       verbose, save_plots):
+    """``train_model``'s tail through ``run_training_fused``: the same
+    epoch lines, metrics log, TensorBoard scalars, plots and result
+    dict."""
+    seed = int(config.get("seed", 0))
+    sched_params = None
+    if scheduler is not None:
+        sched_params = dict(factor=scheduler.factor,
+                            patience=scheduler.patience,
+                            threshold=scheduler.threshold,
+                            min_lr=scheduler.min_lr)
+
+    if verbose:
+        print("Starting training (fused run)...")
+    start_time = time.time()
+    out = fused_run.run_training_fused(
+        engine, state, tr_imgs, tr_masks, va_imgs, va_masks,
+        batch_size=batch_size, num_epochs=num_epochs, lr0=lr,
+        generator=torch.Generator(engine.device).manual_seed(seed + 1),
+        scheduler_params=sched_params,
+        es_patience=config.get("early_stopping_patience", 7),
+        es_min_delta=config.get("early_stopping_min_delta", 0.001))
+    time_elapsed = time.time() - start_time
+    epochs = list(zip(out["train_history"], out["val_history"],
+                      out["lr_history"]))
+
+    if verbose:
+        for e, (tm, vm, l) in enumerate(epochs):
+            print(f"Epoch {e+1:3d}/{num_epochs} - "
+                  f"Train Loss: {tm['loss']:.4f}, Train IoU: {tm['iou']:.4f}, "
+                  f"Val Loss: {vm['loss']:.4f}, Val IoU: {vm['iou']:.4f}, "
+                  f"LR: {l:.6f}")
+        print(f"Training complete in {time_elapsed // 60:.0f}m "
+              f"{time_elapsed % 60:.0f}s")
+        print(f"Best validation IoU: {out['best_iou']:.4f} at epoch "
+              f"{out['best_epoch']+1}")
+
+    if config.get("metrics_log"):
+        with MetricsLogger(config["metrics_log"]) as logger:
+            for e, (tm, vm, l) in enumerate(epochs):
+                logger.log({"epoch": e, "lr": l,
+                            **{f"train_{k}": v for k, v in tm.items()},
+                            **{f"val_{k}": v for k, v in vm.items()}},
+                           kind="epoch")
+    if config.get("tensorboard_dir"):
+        with TBWriter(config["tensorboard_dir"]) as tb:
+            for e, (tm, vm, l) in enumerate(epochs):
+                tb.add_scalars(
+                    {"lr": l,
+                     **{f"train/{k}": v for k, v in tm.items()},
+                     **{f"val/{k}": v for k, v in vm.items()}}, step=e)
+
+    if save_plots and config.get("save_plots", False):
+        plot_training_history(out["train_history"], out["val_history"],
+                              out["lr_history"], config)
+
+    return {
+        "train_metrics": out["train_history"],
+        "val_metrics": out["val_history"],
+        "lr_history": out["lr_history"],
+        "best_iou": out["best_iou"],
+        "best_epoch": out["best_epoch"],
+        "best_model_state": out["best_model_state"],
+        "state": out["state"],
+        "training_time": time_elapsed,
+        "final_train_metrics": out["train_history"][-1]
+        if out["train_history"] else {},
+        "final_val_metrics": out["val_history"][-1]
+        if out["val_history"] else {},
     }
 
 

@@ -1,18 +1,18 @@
 """Optimizers and the epoch-boundary LR/stop controllers (port of
 ``segtpu/train/optim.py``).
 
-- ``make_optimizer``: ``adam`` is ``torch.optim.Adam`` with its coupled L2
-  weight decay (the reference's optimizer, train.py:331-335); ``adamw``
-  and ``sgd`` (momentum 0.9, dampening 0, optional Nesterov) are their
-  ``torch.optim`` classes; torch has no LAMB, so ``lamb`` is ``Lamb``
-  below, which follows optax's chain. These are the update rules the JAX
-  package composes from optax (its ``adam``/``adamw``/``sgd`` chains are
-  the torch rules). The learning rate of every group is set per epoch by
-  ``set_learning_rate``.
+- ``make_optimizer``: a ``DeviceOptimizer`` of one of four update rules,
+  the ones the JAX package composes from optax: ``adam`` with its coupled
+  L2 weight decay (the reference's optimizer, train.py:331-335),
+  ``adamw`` with decoupled decay, ``sgd`` (momentum 0.9, dampening 0,
+  optional Nesterov) and ``lamb`` (optax's chain), with the LR and the
+  step counts on the device, so that the stepwise loop and the fused
+  run's CUDA graphs step the same optimizer. The learning rate is set
+  per epoch by ``set_learning_rate``.
 - ``functional_init`` / ``functional_step``: the same four update rules
   on tensors with a leading fold axis, one learning rate per fold, for
   the ``vmap`` fold-parallel strategy; ``load_functional_state`` hands
-  one fold's moments to a ``torch.optim`` optimizer.
+  one fold's moments to a ``make_optimizer`` optimizer.
 - ``ReduceLROnPlateau`` and ``EarlyStopping``: pure Python, as in the JAX
   package (mode max, relative threshold; patience counter).
 """
@@ -24,16 +24,131 @@ from typing import Dict
 
 import torch
 
+# moments per rule (state keys, as torch's optimizers name them)
+_MOMENTS = {"adam": ("exp_avg", "exp_avg_sq"),
+            "adamw": ("exp_avg", "exp_avg_sq"),
+            "lamb": ("exp_avg", "exp_avg_sq"), "sgd": ("momentum_buffer",)}
+# hyperparameters per rule and their defaults
+_HYPER = {"adam": dict(b1=0.9, b2=0.999, eps=1e-8),
+          "adamw": dict(b1=0.9, b2=0.999, eps=1e-8),
+          "lamb": dict(b1=0.9, b2=0.999, eps=1e-6),
+          "sgd": dict(momentum=0.9, nesterov=False)}
 
-class Lamb(torch.optim.Optimizer):
-    """LAMB as optax's ``lamb`` composes it: Adam moments with bias
-    correction, u = m̂/(√v̂ + eps); u += weight_decay·p; u ·= ‖p‖/‖u‖ per
-    tensor (1 where either norm is 0); p −= lr·u."""
 
-    def __init__(self, params, lr: float = 1e-3, betas=(0.9, 0.999),
-                 eps: float = 1e-6, weight_decay: float = 0.0):
-        super().__init__(params, dict(lr=lr, betas=betas, eps=eps,
-                                      weight_decay=weight_decay))
+def _unknown(name: str) -> ValueError:
+    return ValueError(f"Unknown optimizer '{name}'. "
+                      f"Available: {sorted(_HYPER)}")
+
+
+class DeviceOptimizer(torch.optim.Optimizer):
+    """Update rule ``rule`` (adam, adamw, sgd, lamb) over one group of
+    parameters, with the learning rate (``param_groups[0]["lr"]``, 0-d
+    float64) and the step counts (``state[p]["step"]``, 0-d float32) held
+    as tensors on the parameters' device. ``step()`` reads both there,
+    reads nothing back to the host and branches on no device value (SGD's
+    first step, which takes the gradient as its momentum, is a ``where``
+    on the step count), so a CUDA graph that captured it replays it at the
+    LR and the bias correction of the moment. The stepwise loop calls
+    ``step()`` eagerly and the fused run (``train/fused_run.py``) replays
+    it, so the two run the same kernels on the same values.
+
+    The arithmetic (``_update``) is that of torch's ``Adam``, ``AdamW``
+    and ``SGD`` and of the port's earlier per-tensor LAMB (optax's chain)
+    as torch runs them on each device, with the Python scalars they
+    derive from the LR and the step count held as 0-d tensors: the
+    stepwise loop keeps the numbers it had with those optimizers, on the
+    CPU and on the card. The state is made with the optimizer, zero,
+    so that the first step can be captured too; every parameter must have
+    a gradient at every step (the step counts stay equal), as every
+    parameter of the port's models does."""
+
+    def __init__(self, rule: str, params, lr: float = 1e-3,
+                 weight_decay: float = 0.0, **hyper):
+        rule = rule.lower()
+        if rule not in _HYPER:
+            raise _unknown(rule)
+        unknown = set(hyper) - set(_HYPER[rule])
+        if unknown:
+            raise TypeError(f"{rule}: unknown hyperparameters "
+                            f"{sorted(unknown)}")
+        h = {**_HYPER[rule], **hyper}
+        if rule == "sgd":
+            defaults = dict(lr=lr, weight_decay=float(weight_decay),
+                            momentum=float(h["momentum"]),
+                            nesterov=bool(h["nesterov"]))
+        else:
+            defaults = dict(lr=lr, weight_decay=float(weight_decay),
+                            betas=(float(h["b1"]), float(h["b2"])),
+                            eps=float(h["eps"]))
+        super().__init__(params, defaults)
+        if len(self.param_groups) != 1:
+            raise ValueError("DeviceOptimizer: one parameter group")
+        self.rule = rule
+        (group,) = self.param_groups
+        dev = group["params"][0].device
+        # a fill, not a copy from the host (which would synchronise)
+        group["lr"] = torch.full((), float(lr), dtype=torch.float64,
+                                 device=dev)
+        self._fill_state()
+
+    @property
+    def lr(self) -> torch.Tensor:
+        """The learning rate, a 0-d float64 tensor on the device."""
+        return self.param_groups[0]["lr"]
+
+    def _hyper(self) -> dict:
+        """The rule's hyperparameters, as ``make_optimizer`` takes them."""
+        (g,) = self.param_groups
+        if self.rule == "sgd":
+            return dict(momentum=g["momentum"], nesterov=g["nesterov"])
+        return dict(b1=g["betas"][0], b2=g["betas"][1], eps=g["eps"])
+
+    def like(self, params) -> "DeviceOptimizer":
+        """A new optimizer of this rule and hyperparameters over
+        ``params`` (zero state, LR 0)."""
+        return DeviceOptimizer(self.rule, params, 0.0,
+                               self.param_groups[0]["weight_decay"],
+                               **self._hyper())
+
+    def _fill_state(self) -> None:
+        """Zero moments and step counts on the parameters' device where a
+        parameter has none (a new optimizer; a loaded state of a step
+        before any update); loaded step counts moved there."""
+        (g,) = self.param_groups
+        keys = _moment_keys(self.rule, g)
+        for p in g["params"]:
+            st = self.state[p]
+            for k in keys:
+                if st.get(k) is None:
+                    st[k] = torch.zeros_like(
+                        p, memory_format=torch.preserve_format)
+            step = st.get("step")
+            st["step"] = torch.zeros((), dtype=torch.float32,
+                                     device=p.device) if step is None else \
+                torch.as_tensor(step).to(device=p.device,
+                                         dtype=torch.float32)
+
+    def load_state_dict(self, state_dict) -> None:
+        """torch's load, with the LR and the step counts put back on the
+        device as tensors (the LR into the tensor it had)."""
+        lr = self.lr
+        super().load_state_dict(state_dict)
+        with torch.no_grad():
+            lr.copy_(torch.as_tensor(self.param_groups[0]["lr"]))
+        self.param_groups[0]["lr"] = lr
+        self._fill_state()
+
+    @torch.no_grad()
+    def copy_from(self, other: "DeviceOptimizer") -> None:
+        """``other``'s LR, step counts and moments into this optimizer's
+        tensors, in place (so a graph that captured ``step()`` reads them);
+        ``other`` has the same rule, its parameters pair with these in
+        order."""
+        self.lr.copy_(other.lr)
+        for p, q in zip(self.param_groups[0]["params"],
+                        other.param_groups[0]["params"]):
+            for k, t in self.state[p].items():
+                t.copy_(other.state[q][k])
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -41,84 +156,135 @@ class Lamb(torch.optim.Optimizer):
         if closure is not None:
             with torch.enable_grad():
                 loss = closure()
-        for group in self.param_groups:
-            b1, b2 = group["betas"]
-            for p in group["params"]:
-                if p.grad is None:
-                    continue
-                st = self.state[p]
-                if not st:
-                    st["step"] = 0
-                    st["exp_avg"] = torch.zeros_like(p)
-                    st["exp_avg_sq"] = torch.zeros_like(p)
-                st["step"] += 1
-                g, m, v = p.grad, st["exp_avg"], st["exp_avg_sq"]
-                m.mul_(b1).add_(g, alpha=1 - b1)
-                v.mul_(b2).addcmul_(g, g, value=1 - b2)
-                u = (m / (1 - b1 ** st["step"])) / (
-                    torch.sqrt(v / (1 - b2 ** st["step"])) + group["eps"])
-                u.add_(p, alpha=group["weight_decay"])
-                p_norm, u_norm = torch.linalg.vector_norm(p), \
-                    torch.linalg.vector_norm(u)
-                trust = torch.where((p_norm == 0) | (u_norm == 0),
-                                    torch.ones_like(p_norm), p_norm / u_norm)
-                p.sub_(u * trust, alpha=group["lr"])
+        (group,) = self.param_groups
+        ps = group["params"]
+        if any(p.grad is None for p in ps):
+            raise RuntimeError("DeviceOptimizer: every parameter must have "
+                               "a gradient at every step")
+        steps = [self.state[p]["step"] for p in ps]
+        torch._foreach_add_(steps, 1.0)
+        hyper = self._hyper()
+        _update(self.rule, ps, [p.grad for p in ps],
+                {k: [self.state[p][k] for p in ps]
+                 for k in _moment_keys(self.rule, hyper)},
+                group["lr"], steps[0].double(), group["weight_decay"],
+                **hyper)
         return loss
 
 
-def _adam(params, lr, weight_decay, b1=0.9, b2=0.999, eps=1e-8):
-    return torch.optim.Adam(params, lr=lr, betas=(b1, b2), eps=eps,
-                            weight_decay=weight_decay)
+# ------------------------------------------------------------ the rules
+# The LR and the step count are float64 tensors on the parameters' device;
+# the scalars that torch's rules compute from them in Python (bias
+# corrections, step size, 1 − lr·wd) are computed there in float64 and
+# cast to the parameters' dtype where torch's ops cast a Python scalar.
+# Two ops treat a Python scalar apart on each device, and take that
+# device's form here (``_addcdiv_``, ``_div_scalar``): so the stepwise
+# loop's numbers are those it had with torch's optimizers, on the CPU
+# (single-tensor rules) and on CUDA (foreach rules, torch's default
+# there); ``tests/test_torch_fused_run.py`` and ``tests/test_torch_cuda.py``
+# hold them to those optimizers bit for bit.
+
+def _moment_keys(rule: str, hyper) -> tuple:
+    return () if rule == "sgd" and not hyper["momentum"] else _MOMENTS[rule]
 
 
-def _adamw(params, lr, weight_decay, b1=0.9, b2=0.999, eps=1e-8):
-    return torch.optim.AdamW(params, lr=lr, betas=(b1, b2), eps=eps,
-                             weight_decay=weight_decay)
+def _addcdiv_(ps, ts1, ts2, value) -> None:
+    """``p.addcdiv_(t1, t2, value=v)`` for each p, as torch computes it
+    for a Python ``v``; ``value`` a 0-d tensor holding v in the tensors'
+    dtype. The CPU's single-tensor rule gives p + (v·t1)/t2; CUDA's
+    foreach kernel p + v·(t1/t2) with the product and the sum rounded
+    once, as ``addcmul_`` rounds them."""
+    if ps[0].device.type == "cpu":
+        upd = torch._foreach_mul(ts1, value)
+        torch._foreach_div_(upd, ts2)
+        torch._foreach_add_(ps, upd)
+    else:
+        for p, q in zip(ps, torch._foreach_div(ts1, ts2)):
+            p.addcmul_(q, value)
 
 
-def _sgd(params, lr, weight_decay, momentum=0.9, nesterov=False):
-    return torch.optim.SGD(params, lr=lr, momentum=momentum, dampening=0,
-                           nesterov=nesterov, weight_decay=weight_decay)
+def _div_scalar(x, s):
+    """``x / v`` as torch computes it for a Python float v, ``s`` a 0-d
+    float64 tensor holding v: a true division on the CPU; on CUDA, whose
+    kernel takes a host scalar's reciprocal, a product with 1/v (taken in
+    float64) in x's dtype."""
+    return x / s if x.device.type == "cpu" else x * (1 / s).to(x.dtype)
 
 
-def _lamb(params, lr, weight_decay, b1=0.9, b2=0.999, eps=1e-6):
-    return Lamb(params, lr=lr, betas=(b1, b2), eps=eps,
-                weight_decay=weight_decay)
-
-
-_OPTIMIZERS = {"adam": _adam, "adamw": _adamw, "sgd": _sgd, "lamb": _lamb}
+def _update(rule: str, ps, gs, state, lr, step, weight_decay: float, *,
+            b1=0.9, b2=0.999, eps=1e-8, momentum=0.9,
+            nesterov=False) -> None:
+    """One update of ``ps`` in place by rule ``rule``: gradients ``gs``,
+    moments ``state`` ({key: list}), ``lr`` and ``step`` (the update's
+    1-based count) 0-d float64 on the device. Reads nothing back to the
+    host and branches on no device value."""
+    wd, dt = float(weight_decay), ps[0].dtype
+    if rule in ("adam", "adamw"):
+        ms, vs = state["exp_avg"], state["exp_avg_sq"]
+        bc1, bc2 = 1 - torch.pow(b1, step), 1 - torch.pow(b2, step)
+        neg_step_size = (-(lr / bc1)).to(dt)
+        bc2_sqrt = torch.pow(bc2, torch.full_like(bc2, 0.5)).to(dt)
+        if wd and rule == "adamw":
+            torch._foreach_mul_(ps, (1 - lr * wd).to(dt))
+        elif wd:
+            gs = torch._foreach_add(gs, ps, alpha=wd)
+        torch._foreach_lerp_(ms, gs, 1 - b1)
+        torch._foreach_mul_(vs, b2)
+        torch._foreach_addcmul_(vs, gs, gs, value=1 - b2)
+        denom = torch._foreach_sqrt(vs)
+        torch._foreach_div_(denom, bc2_sqrt)
+        torch._foreach_add_(denom, eps)
+        _addcdiv_(ps, ms, denom, neg_step_size)
+    elif rule == "sgd":
+        if wd:
+            gs = torch._foreach_add(gs, ps, alpha=wd)
+        if momentum:
+            bufs, first = state["momentum_buffer"], step == 1
+            nxt = torch._foreach_mul(bufs, momentum)
+            torch._foreach_add_(nxt, gs)
+            for buf, n, g in zip(bufs, nxt, gs):
+                buf.copy_(torch.where(first, g, n))
+            gs = torch._foreach_add(gs, bufs, alpha=momentum) if nesterov \
+                else bufs
+        # p.add_(g, alpha=-lr), rounded as add_ rounds it
+        neg_lr = (-lr).to(dt)
+        for p, g in zip(ps, gs):
+            p.addcmul_(g, neg_lr)
+    elif rule == "lamb":
+        bc1, bc2 = 1 - torch.pow(b1, step), 1 - torch.pow(b2, step)
+        neg_lr = (-lr).to(dt)
+        for p, g, m, v in zip(ps, gs, state["exp_avg"], state["exp_avg_sq"]):
+            m.mul_(b1).add_(g, alpha=1 - b1)
+            v.mul_(b2).addcmul_(g, g, value=1 - b2)
+            u = _div_scalar(m, bc1) / (torch.sqrt(_div_scalar(v, bc2)) + eps)
+            u.add_(p, alpha=wd)
+            pn, un = torch.linalg.vector_norm(p), torch.linalg.vector_norm(u)
+            trust = torch.where((pn == 0) | (un == 0), torch.ones_like(pn),
+                                pn / un)
+            p.addcmul_(u * trust, neg_lr)
+    else:
+        raise _unknown(rule)
 
 
 def make_optimizer(name: str, params, learning_rate: float = 1e-3,
-                   weight_decay: float = 0.0, **kwargs
-                   ) -> torch.optim.Optimizer:
+                   weight_decay: float = 0.0, **kwargs) -> DeviceOptimizer:
     """Optimizer ``name`` (config key ``optimizer``) over ``params``;
     kwargs: ``b1``, ``b2``, ``eps`` (adam, adamw, lamb), ``momentum``,
     ``nesterov`` (sgd)."""
-    try:
-        factory = _OPTIMIZERS[name.lower()]
-    except KeyError:
-        raise ValueError(
-            f"Unknown optimizer '{name}'. "
-            f"Available: {sorted(_OPTIMIZERS)}") from None
-    return factory(params, float(learning_rate), float(weight_decay),
-                   **kwargs)
+    return DeviceOptimizer(name, params, float(learning_rate),
+                           float(weight_decay), **kwargs)
 
 
-def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float):
-    """Set every parameter group's learning rate."""
-    for group in optimizer.param_groups:
-        group["lr"] = float(lr)
+def set_learning_rate(optimizer: DeviceOptimizer, lr: float):
+    """Set the learning rate (written into its tensor on the device)."""
+    with torch.no_grad():
+        optimizer.lr.fill_(float(lr))
     return optimizer
 
 
 # ------------------------------------------------- functional, per fold
-# State keys per optimizer: "exp_avg"/"exp_avg_sq" (adam, adamw, lamb),
-# "momentum_buffer" (sgd with momentum); each {param name: (K, ...)}.
-
-_MOMENTS = {"adam": ("exp_avg", "exp_avg_sq"),
-            "adamw": ("exp_avg", "exp_avg_sq"),
-            "lamb": ("exp_avg", "exp_avg_sq"), "sgd": ("momentum_buffer",)}
+# State keys per optimizer: those of ``_MOMENTS``, each {param name:
+# (K, ...)}.
 
 
 def functional_init(name: str, params: Dict[str, torch.Tensor]
@@ -126,8 +292,7 @@ def functional_init(name: str, params: Dict[str, torch.Tensor]
     """Zero moments for stacked ``params`` (the state of a fresh
     optimizer)."""
     if name.lower() not in _MOMENTS:
-        raise ValueError(f"Unknown optimizer '{name}'. "
-                         f"Available: {sorted(_OPTIMIZERS)}")
+        raise _unknown(name)
     return {key: {n: torch.zeros_like(p) for n, p in params.items()}
             for key in _MOMENTS[name.lower()]}
 
@@ -191,27 +356,24 @@ def functional_step(name: str, params: Dict[str, torch.Tensor],
                                 torch.ones_like(p_norm), p_norm / u_norm)
             p.sub_(u * _per_fold(trust, p) * _per_fold(lrs, p))
     else:
-        raise ValueError(f"Unknown optimizer '{name}'. "
-                         f"Available: {sorted(_OPTIMIZERS)}")
+        raise _unknown(name)
 
 
-def load_functional_state(optimizer: torch.optim.Optimizer, name: str,
+def load_functional_state(optimizer: DeviceOptimizer,
                           model: torch.nn.Module,
                           state: Dict[str, Dict[str, torch.Tensor]],
                           k: int, step: int) -> None:
     """Fold ``k``'s moments after ``step`` updates into ``optimizer`` (made
-    by ``make_optimizer(name)`` over ``model``'s parameters), so that it
-    continues that fold's training."""
+    by ``make_optimizer`` of the same rule over ``model``'s parameters),
+    so that it continues that fold's training."""
     if step == 0:
         return
-    name = name.lower()
-    for n, p in model.named_parameters():
-        st = {key: state[key][n][k].clone() for key in state}
-        if name in ("adam", "adamw"):
-            st["step"] = torch.tensor(float(step))
-        elif name == "lamb":
-            st["step"] = step
-        optimizer.state[p] = st
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            st = optimizer.state[p]
+            for key in state:
+                st[key].copy_(state[key][n][k])
+            st["step"].fill_(float(step))
 
 
 class ReduceLROnPlateau:

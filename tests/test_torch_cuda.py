@@ -518,3 +518,254 @@ def test_tta_batch_of_rotated_views_reaches_the_gate(cuda):
     model.fuse_gate = False
     plain = tta_predict_proba(model, x, device="cuda")
     np.testing.assert_allclose(fused, plain, atol=1e-4)
+
+
+# ------------------------------------------ the fused training run (A18)
+
+def _blob_arrays(n, size, seed):
+    """n canonical uint8 images with bright blobs and their masks."""
+    import numpy as np
+    r = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:size, :size]
+    masks = np.zeros((n, size, size), np.uint8)
+    for i in range(n):
+        cy, cx = r.integers(size // 4, 3 * size // 4, 2)
+        masks[i][(yy - cy) ** 2 + (xx - cx) ** 2 < (size // 6) ** 2] = 1
+    imgs = r.normal(60, 15, (n, size, size)) + 90.0 * masks
+    return imgs.clip(0, 255).astype(np.uint8), masks
+
+
+def _fit(cuda, fused, initial_state=None, **cfg):
+    """train_model of resnet_tiny at 64² on 10 training images (B=4: two
+    full batches and a remainder of 2) and 6 validation images (one full
+    batch and a remainder of 2), f32; the plateau scheduler cuts the LR
+    after every epoch."""
+    from segtpu_torch.train.loop import train_model
+    from segtpu_torch.train.optim import ReduceLROnPlateau
+    imgs, masks = _blob_arrays(16, 64, 0)
+    config = dict(backbone="resnet_tiny", use_attention=True,
+                  img_size=(64, 64), batch_size=4, verbose=False,
+                  loss_fn="combo", seed=0, fused_run=fused, **cfg)
+    return train_model(None, imgs[:10], masks[:10], imgs[10:], masks[10:],
+                       num_epochs=3, device=cuda, config=config,
+                       scheduler=ReduceLROnPlateau(1e-3, patience=0,
+                                                   threshold=0.5),
+                       initial_state=initial_state)
+
+
+@pytest.fixture
+def deterministic(cuda):
+    flag = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    yield cuda
+    torch.backends.cudnn.deterministic = flag
+
+
+@pytest.mark.parametrize("optimizer", ["adam", "adamw", "sgd", "lamb"])
+def test_fused_run_replays_every_optimizer_as_the_stepwise_loop(
+        deterministic, optimizer):
+    """Three epochs with LR cuts, fused against stepwise, in f32 with TF32
+    off: the same LR history and per-epoch losses within 1e-4 relative
+    (both loops step the same ``DeviceOptimizer``, so the runs agree to
+    their last bits or nearly). An LR or a step count baked into the
+    captured step would move the later epochs far past that."""
+    step, fused = (_fit(deterministic, f, optimizer=optimizer)
+                   for f in (False, True))
+    assert fused["lr_history"] == step["lr_history"] == [1e-3, 5e-4, 2.5e-4]
+    assert fused["best_epoch"] == step["best_epoch"]
+    for key in ("train_metrics", "val_metrics"):
+        for a, b in zip(fused[key], step[key]):
+            assert abs(a["loss"] - b["loss"]) <= 1e-4 * abs(b["loss"]), key
+
+
+def test_fused_run_counts_replayed_launches_and_refolds_the_gates(cuda):
+    """The validation graphs launch the gate kernel: 4 launches per
+    replayed validation forward (and per warm-up call of a first run),
+    none missed; a second run of equal shapes captures nothing new. The
+    last epoch's validation metrics equal an eager pass over the final
+    weights (a fold baked into the graph at capture would not), and the
+    model handed back, whose folds were cached before the run, folds as
+    a fresh fold does."""
+    from segtpu_torch.data.loader import DeviceDataLoader
+    from segtpu_torch.kernels import reset_launch_counts
+    from segtpu_torch.models.attention import AttentionGate
+    from segtpu_torch.train import fused_run
+    from segtpu_torch.train.engine import TrainState, get_engine
+    from segtpu_torch.train.loop import _materialize
+    fused_run.RUNNERS.clear()
+    reset_launch_counts()
+    _fit(cuda, True)
+    runner = fused_run.RUNNERS[fused_run.RUNNERS.keys()[-1]]
+    warm = runner.stats["warmup_calls"]
+    val_forwards = 3 * 2 + warm["eval_full"] + warm["eval_rem"]
+    assert launch_counts()["attention_gate"] == 4 * val_forwards
+
+    engine = get_engine({"backbone": "resnet_tiny", "use_attention": True,
+                         "loss_fn": "combo"}, device=cuda)
+    imgs, masks = _blob_arrays(16, 64, 0)
+    vi, vm = _materialize(imgs[10:], masks[10:], device=cuda)
+    model = engine.build_model().reset_parameters(
+        torch.Generator().manual_seed(0)).eval()
+    with torch.no_grad():                      # cache the gates' folds
+        model(vi)
+    reset_launch_counts()
+    second = _fit(cuda, True, initial_state=TrainState(model))
+    assert runner.stats["captures"] == 1 and runner.stats["runs"] == 2
+    assert launch_counts()["attention_gate"] == 4 * 3 * 2
+    assert second["state"].model is model
+
+    final = engine.build_model()
+    final.load_state_dict(runner.model.state_dict())
+    eager = engine.run_eval_epoch(TrainState(final),
+                                  DeviceDataLoader(vi, vm, 4, shuffle=False))
+    for k, v in eager.items():
+        got = second["val_metrics"][-1][k]
+        assert abs(v - got) <= 1e-6 * max(1.0, abs(v)), (k, v, got)
+    with torch.no_grad():
+        for g in (m for m in model.modules() if isinstance(m,
+                                                            AttentionGate)):
+            cached, fresh = g.folded(torch.float32), g.fold(torch.float32)
+            assert all(torch.equal(a, b) for a, b in zip(cached, fresh))
+
+
+def test_counted_graph_counts_each_replay(cuda):
+    """A gate launch captured in a ``CountedGraph`` counts once per
+    replay; one captured by a bare ``torch.cuda.graph`` raises."""
+    from segtpu_torch.kernels import CountedGraph
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    r = lambda *s: torch.randn(*s, generator=gen, device=cuda)
+    args = [r(2, 8, 8, 16), r(2, 8, 8, 24), r(16, 8) / 4, r(24, 8) / 5,
+            r(8) * 0.1, r(8) / 3, torch.full((1,), 0.1, device=cuda)]
+    attention_gate(*args)                 # built and loaded outside
+    graph = CountedGraph()
+    with graph.capture():
+        out = attention_gate(*args)
+    before = launch_counts()["attention_gate"]
+    for _ in range(3):
+        graph.replay()
+    assert launch_counts()["attention_gate"] - before == 3
+    _close(out, attention_gate_plain(*args), torch.float32)
+    with pytest.raises(RuntimeError, match="CountedGraph"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph()):
+            attention_gate(*args)
+
+
+@pytest.mark.parametrize("name,kw", [("adam", {}), ("adamw", {}),
+                                     ("sgd", {}), ("sgd", {"nesterov": True}),
+                                     ("lamb", {})],
+                         ids=["adam", "adamw", "sgd", "sgd-nesterov", "lamb"])
+def test_optimizer_step_replayed_equals_eager_on_the_card(cuda, name, kw):
+    """``DeviceOptimizer.step()`` captured once in a CUDA graph and
+    replayed, with the LR changed between replays, against the same step
+    called eagerly: the same bits after each of four replays (an LR or a
+    step count baked into the graph would part them at the first cut or
+    the first replay)."""
+    from segtpu_torch.train.optim import make_optimizer, set_learning_rate
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    shapes = [(64, 32, 3, 3), (1000,), (7, 5)]
+    init = [torch.randn(s, generator=gen, device=cuda) for s in shapes]
+    pa = [t.clone().requires_grad_() for t in init]
+    pb = [t.clone().requires_grad_() for t in init]
+    eager = make_optimizer(name, pa, 1e-3, 1e-2, **kw)
+    opt = make_optimizer(name, pb, 1e-3, 1e-2, **kw)
+    for pe, pg in zip(pa, pb):             # a warm-up step, then capture
+        pg.grad = torch.randn(pg.shape, generator=gen, device=cuda)
+        pe.grad = pg.grad.clone()
+    eager.step()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        opt.step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        opt.step()
+    for lr in (1e-3, 1e-3, 5e-4, 2.5e-4):
+        grads = [torch.randn(s, generator=gen, device=cuda) for s in shapes]
+        for pe, pg, g in zip(pa, pb, grads):
+            pe.grad = g.clone()
+            pg.grad.copy_(g)
+        set_learning_rate(eager, lr)
+        eager.step()
+        set_learning_rate(opt, lr)
+        graph.replay()
+        assert all(torch.equal(a, b) for a, b in zip(pa, pb)), lr
+    assert float(opt.state[pb[0]]["step"]) == 5.0
+
+
+@pytest.mark.parametrize("name,kw", [("adam", {}), ("adamw", {}),
+                                     ("sgd", {}), ("sgd", {"nesterov": True}),
+                                     ("lamb", {})],
+                         ids=["adam", "adamw", "sgd", "sgd-nesterov", "lamb"])
+def test_optimizer_steps_as_torchs_own_on_the_card(cuda, name, kw):
+    """On the card torch runs its optimizers' foreach rules (the port's
+    earlier LAMB its per-tensor one); ``DeviceOptimizer`` takes their
+    forms, so that the stepwise loop keeps its numbers there: four steps
+    with weight decay and a changing LR leave the same bits."""
+    from segtpu_torch.train.optim import make_optimizer, set_learning_rate
+    from torch_optim_reference import reference_optimizer, set_reference_lr
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    shapes = [(64, 32, 3, 3), (1000,), (7, 5)]
+    init = [torch.randn(s, generator=gen, device=cuda) for s in shapes]
+    pa = [t.clone().requires_grad_() for t in init]
+    pb = [t.clone().requires_grad_() for t in init]
+    ref = reference_optimizer(name, pa, 1e-3, 1e-2, **kw)
+    opt = make_optimizer(name, pb, 1e-3, 1e-2, **kw)
+    for lr in (1e-3, 1e-3, 5e-4, 2.5e-4):
+        grads = [torch.randn(s, generator=gen, device=cuda) for s in shapes]
+        for ps in (pa, pb):
+            for p, g in zip(ps, grads):
+                p.grad = g.clone()
+        set_reference_lr(ref, lr)
+        ref.step()
+        set_learning_rate(opt, lr)
+        opt.step()
+        assert all(torch.equal(a, b) for a, b in zip(pa, pb)), lr
+
+
+def test_fused_run_with_remat_replays_as_the_stepwise_loop(deterministic):
+    """``remat="full"`` (the forward re-run in backward through
+    ``torch.utils.checkpoint``) is a configuration the fused run takes:
+    its training step captures, and the run equals the stepwise one as
+    ``test_fused_run_replays_every_optimizer_as_the_stepwise_loop``
+    holds it."""
+    step, fused = (_fit(deterministic, f, remat="full")
+                   for f in (False, True))
+    assert fused["lr_history"] == step["lr_history"] == [1e-3, 5e-4, 2.5e-4]
+    for key in ("train_metrics", "val_metrics"):
+        for a, b in zip(fused[key], step[key]):
+            assert abs(a["loss"] - b["loss"]) <= 1e-4 * abs(b["loss"]), key
+
+
+def test_replayed_run_equals_the_same_steps_run_eagerly(deterministic):
+    """A runner's replays against a runner that calls the same steps
+    eagerly on the card (``graphs=False``), from the same state: every
+    history and every weight equal bit for bit."""
+    from segtpu_torch.data.loader import DeviceDataLoader
+    from segtpu_torch.train.engine import get_engine
+    from segtpu_torch.train.fused_run import FusedRunner
+    from segtpu_torch.train.loop import _materialize
+    engine = get_engine({"backbone": "resnet_tiny", "use_attention": True,
+                         "loss_fn": "combo"}, device=deterministic)
+    imgs, masks = _blob_arrays(16, 64, 1)
+    ti, tm = _materialize(imgs[:10], masks[:10], device=deterministic)
+    vi, vm = _materialize(imgs[10:], masks[10:], device=deterministic)
+    outs = []
+    for graphs in (True, False):
+        state = engine.init_state(torch.Generator().manual_seed(0), 1e-3,
+                                  1e-5)
+        runner = FusedRunner(engine, state, 10, 6, graphs=graphs)
+        outs.append(runner.run(
+            state, DeviceDataLoader(ti, tm, 4), DeviceDataLoader(
+                vi, vm, 4, shuffle=False),
+            torch.Generator(deterministic).manual_seed(1), 3, 1e-3,
+            dict(factor=0.5, patience=0, threshold=0.5, min_lr=0.0), 7,
+            1e-3))
+        assert runner.stats["captures"] == int(graphs)
+    a, b = outs
+    for key in ("train_history", "val_history", "lr_history", "best_epoch"):
+        assert a[key] == b[key], key
+    for sa, sb in ((a["state"], b["state"]),
+                   (a["final_state"], b["final_state"])):
+        da, db = sa.model.state_dict(), sb.model.state_dict()
+        assert all(torch.equal(da[k], db[k]) for k in da)

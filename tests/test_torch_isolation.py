@@ -43,7 +43,8 @@ def test_sources_cover_every_port_module():
     K-fold harness, fold-parallel training, the drivers (forward selection
     too), the CLI, the metrics log, TensorBoard writer, profiling hooks and
     plots, tiled and TTA inference, the serving export, the HTTP server
-    and its tool, so the tests here check them too."""
+    and its tool, the LRU cache and the fused training run, so the tests
+    here check them too."""
     names = {str(p.relative_to(ROOT)) for p in SOURCES}
     for mod in ("kernels/attention_gate.py", "kernels/fused_conv.py",
                 "kernels/fused_block.py", "tools/__init__.py",
@@ -61,7 +62,8 @@ def test_sources_cover_every_port_module():
                 "eval/fold_parallel.py", "experiments/forward_selection.py",
                 "viz/plots.py", "tools/experiment_runs.py",
                 "infer/tiled.py", "infer/tta.py", "infer/export.py",
-                "infer/serve.py", "tools/serve.py"):
+                "infer/serve.py", "tools/serve.py", "core/caching.py",
+                "train/fused_run.py"):
         assert f"segtpu_torch/{mod}" in names
     assert "chip_smoke.py" in names
 

@@ -127,10 +127,12 @@ def test_tiled_predict_many_matches_single(mode, batch_tiles):
     assert all(n % 3 == 0 for n in calls)
 
 
-def _pair(use_attention, backbone="resnet_tiny", size=32, seed=0):
+def _pair(use_attention, backbone="resnet_tiny", size=32, seed=0,
+          n_classes=1):
     """A JAX U-Net and the port's, on the same weights, BatchNorm
     statistics randomized so that the inference BatchNorms do work."""
-    jm = JaxUNet(backbone=backbone, use_attention=use_attention)
+    jm = JaxUNet(backbone=backbone, use_attention=use_attention,
+                 n_classes=n_classes)
     p, s = create_model_state(jm, jax.random.key(seed), (1, size, size, 1))
     r = np.random.default_rng(seed + 5)
     s = jax.tree_util.tree_map_with_path(
@@ -138,7 +140,7 @@ def _pair(use_attention, backbone="resnet_tiny", size=32, seed=0):
                       else r.uniform(0.8, 1.2, v.shape)).astype(np.float32),
         s)
     tm = UNetWithBackbone(backbone=backbone, use_attention=use_attention,
-                          device="cpu")
+                          n_classes=n_classes, device="cpu")
     tm.load_state_dict(state_dict_from_jax(p, s, backbone, use_attention,
                                            device="cpu"), strict=True)
     return jm, SimpleNamespace(params=p, batch_stats=s), tm.eval()
@@ -154,6 +156,18 @@ def test_tiled_with_real_model(mode, use_attention):
     got = tt.tiled_predict(tm, img, device="cpu", **kw)
     assert got.shape == (80, 72, 1) and np.isfinite(got).all()
     assert got.min() >= 0.0 and got.max() <= 1.0
+    _close(got, jt.tiled_predict(jm, state, img, **kw), atol=1e-4)
+
+
+def test_tiled_multiclass_with_real_model():
+    """n_classes=3: the blended logits through the channel softmax, with
+    attention, against the JAX package's; the classes sum to 1."""
+    jm, state, tm = _pair(True, n_classes=3)
+    img = np.random.default_rng(4).random((64, 48)).astype(np.float32)
+    kw = dict(tile=32, overlap=16, batch_tiles=4, mode="blend")
+    got = tt.tiled_predict(tm, img, device="cpu", **kw)
+    assert got.shape == (64, 48, 3)
+    np.testing.assert_allclose(got.sum(-1), 1.0, atol=1e-5)
     _close(got, jt.tiled_predict(jm, state, img, **kw), atol=1e-4)
 
 

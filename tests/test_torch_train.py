@@ -39,6 +39,7 @@ import jax
 import jax.numpy as jnp
 
 from segtpu.losses import get_loss_function as jax_get_loss
+from segtpu.losses.multiclass import get_multiclass_loss as jax_get_mc_loss
 from segtpu.models.unet import UNetWithBackbone as JaxUNet
 from segtpu.models.unet import create_model_state
 from segtpu.train.engine import TrainState as JaxTrainState
@@ -85,8 +86,9 @@ def _batch(seed=1):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_init(use_attention):
-    jm = JaxUNet(backbone="resnet_tiny", use_attention=use_attention)
+def _jax_init(use_attention, n_classes=1):
+    jm = JaxUNet(backbone="resnet_tiny", use_attention=use_attention,
+                 n_classes=n_classes)
     return jm, create_model_state(jm, jax.random.key(0), (1, S, S, 1))
 
 
@@ -99,7 +101,7 @@ def _engine(use_attention, **cfg):
 def _port_state(use_attention, dtype=torch.float32, **cfg):
     """An engine and a state on the JAX model's initial weights."""
     eng = _engine(use_attention, **cfg)
-    _, (p, s) = _jax_init(use_attention)
+    _, (p, s) = _jax_init(use_attention, cfg.get("n_classes", 1))
     model = eng.build_model()
     model.load_state_dict(state_dict_from_jax(p, s, "resnet_tiny",
                                               use_attention, device="cpu"))
@@ -183,14 +185,15 @@ def test_plateau_and_early_stopping_match_jax(mode):
 
 # ------------------------------------------------------ one train step
 
-def _jax_step(use_attention, x, y, dtype):
+def _jax_step(use_attention, x, y, dtype, n_classes=1):
     """JAX's train step, written out: (loss, logits, grads, new
     batch_stats, new params) as numpy trees in ``dtype``."""
-    jm0, (p, s) = _jax_init(use_attention)
+    jm0, (p, s) = _jax_init(use_attention, n_classes)
     jm = JaxUNet(backbone="resnet_tiny", use_attention=use_attention,
-                 dtype=dtype)
+                 n_classes=n_classes, dtype=dtype)
     p, s = (jax.tree.map(lambda a: jnp.asarray(a, dtype), t) for t in (p, s))
-    loss_fn = jax_get_loss({"loss_fn": "combo"})
+    loss_fn = (jax_get_mc_loss if n_classes > 1 else jax_get_loss)(
+        {"loss_fn": "combo"})
 
     def loss_f(params):
         logits, mut = jm.apply({"params": params, "batch_stats": s},
@@ -209,8 +212,8 @@ def _jax_step(use_attention, x, y, dtype):
             host(new_p))
 
 
-def _port_step(use_attention, x, y, dtype):
-    eng, st = _port_state(use_attention, dtype)
+def _port_step(use_attention, x, y, dtype, **cfg):
+    eng, st = _port_state(use_attention, dtype, **cfg)
     xt, yt = _nchw(x, dtype), _nchw(y, dtype)
     with torch.no_grad():
         logits = copy.deepcopy(st.model).train()(xt)
@@ -220,13 +223,15 @@ def _port_step(use_attention, x, y, dtype):
         st.model.state_dict()
 
 
-def _check_step_in_float64(use_attention, x, y):
+def _check_step_in_float64(use_attention, x, y, n_classes=1):
     """One float64 train step of both packages on (x, y): loss, logits,
     gradients, updated parameters and BatchNorm statistics. Returns the
     port's state_dict after the step."""
     with jax.enable_x64(True):
-        jl, jlg, jg, jbs, jp = _jax_step(use_attention, x, y, jnp.float64)
-    tl, tlg, tg, tsd = _port_step(use_attention, x, y, torch.float64)
+        jl, jlg, jg, jbs, jp = _jax_step(use_attention, x, y, jnp.float64,
+                                         n_classes)
+    tl, tlg, tg, tsd = _port_step(use_attention, x, y, torch.float64,
+                                  n_classes=n_classes)
     assert abs(tl - jl) <= 1e-6 * abs(jl)    # the metric vector is f32
     np.testing.assert_allclose(tlg, jlg, atol=1e-9 * np.abs(jlg).max())
 
@@ -269,6 +274,16 @@ def test_train_step_at_batch_one_matches_jax_in_float64(use_attention):
     assert bottom
     for k, v in bottom.items():           # 0.9·1 + 0.1·0, exactly
         assert bool((v == 0.9).all()), k
+
+
+def test_multiclass_train_step_matches_jax_in_float64():
+    """n_classes=3 (softmax head, the multiclass combo loss and metrics),
+    labels 0..2, with attention: the same float64 bars as the binary
+    step."""
+    x, _ = _batch()
+    r = np.random.default_rng(9)
+    y = r.integers(0, 3, x.shape).astype(np.float32)
+    _check_step_in_float64(True, x, y, n_classes=3)
 
 
 def _bottom_level_vars(sd):
@@ -475,12 +490,7 @@ def test_train_model_with_a_remainder_of_one_matches_jax():
 
 
 def test_train_model_leaves_out_what_is_not_ported():
-    r = np.random.default_rng(4)
-    ti, tm = _blobs(r, 2)
     cfg = dict(backbone="resnet_tiny", img_size=(S, S), verbose=False)
-    with pytest.raises(NotImplementedError, match="A18"):
-        train_model(None, ti, tm, ti, tm, num_epochs=1, device="cpu",
-                    config={**cfg, "fused_run": True})
     with pytest.raises(NotImplementedError, match="A2"):
         get_engine({**cfg, "reparam_in_train": True}, device="cpu")
 
