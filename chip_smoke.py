@@ -163,10 +163,37 @@ it, or when any phase fails:
    CV of (m1)'s configuration with ``fused_run``: one capture for both
    folds, each fold within 1e-2 of the stepwise CV; a ``fused {...}``
    line;
-13. one JSON line ``{"kernels": [...]}`` (gate and upsample launches
-   count every path above, the replays of the fused runs' graphs
-   included; their sums over the other encoders' shapes under
-   ``encoders``), then the card line, then the result line
+13. multi-device (p), cuDNN deterministic; one card, so no scaling is
+   measured: (p1) NCCL with one rank in this process (a ``file://``
+   rendezvous): ``DataParallel`` over the card, one DP step of the bf16
+   flagship (512², B=8) equal to the plain engine's step bit for bit
+   (loss, metrics, parameters, BatchNorm statistics); two epochs of
+   ``run_train_and_eval_epoch_async`` over ``shard_loader`` loaders (16 +
+   4 images) enqueued before one fetch, with the plateau LR and early
+   stopping, 4 gate launches per validation forward; the DP and the plain
+   step alternated, 30 CUDA-event spans each (the wrapper's own cost); the
+   no-attention flagship's DP validation forward launching the upsample
+   as ``_fused_level`` predicts. (p2) two ranks of this script
+   (``--md-rank``) on the card over gloo (NCCL refuses two ranks on one
+   device), each of which must exit 0 with its tensors on ``cuda``: the
+   f32 flagship's DP step at global B=8 and an A=2 accumulated step
+   against the same steps in one process (loss within 1e-4 of itself,
+   running statistics within 1e-3 of their scale, the summed gradients
+   within 1e-3 of the largest; rank-local statistics and gradients, and
+   a mean in place of the gradients' sum, shown to miss that), the bf16 DP step's time, ``spatial_predict`` of a
+   2048² slide over 2 bands (halo 32, 1088×2048 band forwards) against
+   the two haloed bands forwarded in one process, and the halo and blend
+   tilers with ``shard_tiles_axis="data"`` against the unsharded tiler
+   (probabilities within 2^-8), 4 gate launches per band and tile-batch
+   forward on each rank; (p4) one profiled world-2 step read by
+   ``segtpu_torch.core.hlo_profile``: the gradient all-reduce carries the
+   parameters' bytes, and the BatchNorm syncs are 2 per BatchNorm. (p3)
+   2 folds through ``train_folds_parallel(devices=["cuda:0", "cuda:0"])``
+   equal to the default placement. A ``multidevice {...}`` line;
+14. one JSON line ``{"kernels": [...]}`` (gate and upsample launches
+   count every path above, the replays of the fused runs' graphs and both
+   world-2 ranks included; their sums over the other encoders' shapes
+   under ``encoders``), then the card line, then the result line
    ``{"ok": true, "device": {...}}``.
 
 The weights are random, made from a fixed seed; the BatchNorm running
@@ -630,10 +657,6 @@ def _device_batch(model, images, device):
 # the medians are reported, so a slow spell of the shared host or the card
 # falls on both.
 FORWARD_TURNS = 5
-# The port's kernels a serving forward can run, by the names the profiler
-# shows (the tensor-core and the CUDA-core kernel of each source).
-PORT_KERNELS = ("gate_bf16_kernel", "attention_gate_kernel",
-                "upsample_bf16_kernel", "upsample2x_concat_kernel")
 
 
 def _forward_ms(model, x, use_kernels, turns=FORWARD_TURNS) -> tuple:
@@ -663,6 +686,7 @@ def _profile_calls(fn, calls: int) -> dict:
     one unprofiled call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from segtpu_torch.core.hlo_profile import PORT_KERNELS
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -1839,6 +1863,7 @@ def _check_trace(model, images, device) -> dict:
     writes a trace file that names the gate kernel."""
     import os
     import tempfile
+    from segtpu_torch.core.hlo_profile import PORT_KERNELS
     from segtpu_torch.core.profiling import annotate, trace
     with tempfile.TemporaryDirectory(prefix="segtpu-torch-trace-") as d:
         with trace(d), annotate("validation-forward"), \
@@ -1848,7 +1873,7 @@ def _check_trace(model, images, device) -> dict:
         (name,) = os.listdir(d)
         text = open(os.path.join(d, name)).read()
         size = os.path.getsize(os.path.join(d, name))
-    named = [k for k in PORT_KERNELS[:2] if k in text]
+    named = [k for k in PORT_KERNELS if "gate" in k and k in text]
     check(bool(named) and "validation-forward" in text,
           f"folds (m3): the trace of a validation forward ({size} bytes) "
           f"names the gate kernel ({named}) and the annotation")
@@ -3321,6 +3346,535 @@ def phase_fused(device="cuda", backbone="resnet34", size=SIZE) -> dict:
     return res
 
 
+# ------------------------------------------------------- (p) multi-device
+# One card, so the data-parallel path runs twice: NCCL with one rank in
+# this process (p1), and gloo with two ranks, two processes on the card
+# (p2, p4), since NCCL refuses two ranks on one device. Neither measures
+# scaling.
+MD_TRAIN_IMAGES, MD_VAL_IMAGES = 16, 4
+# The world-1 wrapper's cost: this many CUDA-event spans of the DP step
+# and of the plain step, alternated, on one resident batch.
+MD_TIMED_STEPS = 30
+# The world-2 DP step, bf16: this many spans.
+MD_WORLD2_STEPS = 10
+# (p2): the f32 DP step (TF32 off) against the one-process f32 step on the
+# same 8 images. The two sum each BatchNorm's statistics in other orders
+# (E[x²] − E[x]² over two ranks' sums against cuDNN's), f32 rounding of
+# O(1) values over 2.6e5 pixels a channel at level 1: the loss within
+# 1e-4 of itself and each running statistic within 1e-3 of its tensor's
+# largest magnitude (the JAX package's dry run held 5e-3). Rank-local
+# statistics miss the latter by the activations' own spread, 0.1-1.
+TOL_MD_LOSS, TOL_MD_STATS = 1e-4, 1e-3
+# (p2): the gradients the DP step summed over the ranks (what the
+# optimizer took) against the one-process step's, within 1e-3 of the
+# largest gradient. They hold the reduction to its factor, which the
+# parameters after Adam's first step (lr·g/|g|) cannot: a mean in place of
+# the sum halves them (an error of 0.5), and rank-local gradients (a
+# plain step on half the rows) miss the bar too.
+TOL_MD_GRADS = 1e-3
+# (p2): bf16 probabilities of the row-sharded and tile-sharded predictors
+# against the same forwards in one process: 2^-8 (half a bf16 ulp at 1;
+# the forwards differ only in batch composition, so cuDNN may pick other
+# algorithms).
+TOL_MD_PROBS = 2.0 ** -8
+MD_SLIDE, MD_HALO, MD_ACCUM = 2048, 32, 2
+# The world-2 ranks' deadline; on expiry both are killed.
+MD_TIMEOUT_S = 420
+MD_FLAGSHIP = {"use_attention": True, "loss_fn": "combo",
+               "dtype": "bfloat16"}
+
+
+def _md_batch(n, size, seed, device):
+    """n normalised flagship images (N, 1, S, S) channels_last and their
+    masks on ``device``, from ``seed``."""
+    from segtpu_torch.data.preprocess import normalize_canonical
+    imgs, masks = _blob_images(n, size, np.random.default_rng(seed))
+    x = normalize_canonical(torch.from_numpy(imgs).to(device)).contiguous(
+        memory_format=torch.channels_last)
+    return x, torch.from_numpy(masks).to(device)[:, None].float()
+
+
+def _md_state_err(got: dict, want: dict) -> tuple:
+    """(largest error of a parameter relative to the largest parameter,
+    largest error of a running statistic relative to its tensor's largest
+    magnitude)."""
+    params = [k for k in want if want[k].is_floating_point()
+              and "running" not in k]
+    pmax = max(float(want[k].abs().max()) for k in params)
+    perr = max(float((got[k] - want[k]).abs().max()) for k in params) / pmax
+    serr = max(float((got[k] - want[k]).abs().max())
+               / max(float(want[k].abs().max()), 1e-30)
+               for k in want if "running" in k)
+    return perr, serr
+
+
+def _md_grads(model) -> dict:
+    return {k: p.grad.clone() for k, p in model.named_parameters()}
+
+
+def _md_grad_err(got: dict, want: dict) -> float:
+    """Largest error of a gradient relative to the largest gradient."""
+    gmax = max(float(w.abs().max()) for w in want.values())
+    return max(float((got[k] - want[k]).abs().max()) for k in want) / gmax
+
+
+def _md_world_one(tmp, device, backbone, size) -> dict:
+    """(p1): NCCL, one rank, this process."""
+    from segtpu_torch.core.dist import create_mesh, init_process_group
+    from segtpu_torch.data.loader import DeviceDataLoader
+    from segtpu_torch.kernels import launch_counts, reset_launch_counts
+    from segtpu_torch.parallel import DataParallel
+    from segtpu_torch.train.engine import METRIC_KEYS, get_engine
+    from segtpu_torch.train.optim import EarlyStopping, ReduceLROnPlateau
+    backend = init_process_group(f"file://{tmp}/rdzv_world1", 1, 0,
+                                 device=torch.device(device, 0))
+    res = {"backend_world1": backend}
+    try:
+        dp = DataParallel(create_mesh(device=device))
+        engine = get_engine(dict(MD_FLAGSHIP, backbone=backbone),
+                            device=device)
+        b = TRAIN_CONFIG["batch_size"]
+        x, y = _md_batch(b, size, SEED + 20, device)
+        outs = []
+        for shard in (dp.shard, None):
+            st = engine.init_state(torch.Generator().manual_seed(SEED), 1e-3,
+                                   1e-5)
+            if shard is not None:
+                dp.replicate(st)
+                st, m = engine.train_step(st, shard(x), shard(y))
+            else:
+                st, m = engine.train_step(st, x, y)
+            outs.append((torch.stack(list(m.values())).cpu(),
+                         {k: v.clone() for k, v in
+                          st.model.state_dict().items()}))
+        (ma, da), (mb, db) = outs
+        same = torch.equal(ma, mb) and all(torch.equal(da[k], db[k])
+                                           for k in da)
+        check(same, f"multidevice (p1): a DP step over one rank ({backend}) "
+              f"equals the plain step bit for bit: loss and metrics, "
+              f"{len(da)} parameters and BatchNorm tensors")
+
+        # two epochs over sharded loaders, both enqueued before one fetch,
+        # with the plateau LR and early stopping (the dry run's stage 3)
+        imgs, masks = _md_batch(MD_TRAIN_IMAGES + MD_VAL_IMAGES, size,
+                                SEED + 21, device)
+        n = MD_TRAIN_IMAGES
+        tr = dp.shard_loader(DeviceDataLoader(imgs[:n], masks[:n], b))
+        va = dp.shard_loader(DeviceDataLoader(imgs[n:], masks[n:], b,
+                                              shuffle=False))
+        st = dp.replicate(engine.init_state(
+            torch.Generator().manual_seed(SEED + 1), 1e-3, 1e-5))
+        sched = ReduceLROnPlateau(1e-3, mode="max", factor=0.5, patience=1)
+        stop = EarlyStopping(patience=3, min_delta=0.0)
+        gen = torch.Generator(device).manual_seed(SEED + 2)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        window = []
+        for _ in range(2):
+            st, tt, vt = engine.run_train_and_eval_epoch_async(
+                st, tr, va, sched.lr, gen)
+            window.append(torch.stack([tt, vt]))
+        fetched = torch.stack(window).cpu()
+        counts = launch_counts()
+        epochs = []
+        for tv, vv in fetched:
+            tm = dict(zip(METRIC_KEYS, (tv / tr.n).tolist()))
+            vm = dict(zip(METRIC_KEYS, (vv / va.n).tolist()))
+            sched.step(vm["iou"])
+            stop.step(vm["iou"])
+            epochs.append({"train_loss": tm["loss"], "val_loss": vm["loss"],
+                           "val_iou": vm["iou"], "lr": sched.lr})
+        val_forwards = 2 * -(-MD_VAL_IMAGES // b)
+        check(all(np.isfinite([e["train_loss"], e["val_loss"]]).all()
+                  for e in epochs)
+              and counts["attention_gate"] == 4 * val_forwards,
+              f"multidevice (p1): 2 pipelined epochs over sharded loaders "
+              f"with plateau LR and early stopping: finite losses "
+              f"({epochs}), attention_gate launched "
+              f"{counts['attention_gate']} times in {val_forwards} "
+              f"validation forwards (want 4 per forward)")
+        res.update(epochs_world1=epochs, launches={
+            "attention_gate": counts["attention_gate"],
+            "upsample2x_concat": counts["upsample2x_concat"]})
+
+        # the wrapper's own cost: DP and plain steps alternated, the DP
+        # step placing its batch (``shard``) inside its span
+        st = dp.replicate(engine.init_state(
+            torch.Generator().manual_seed(SEED), 1e-3, 1e-5))
+        runs = {"dp": lambda: engine.train_step(st, dp.shard(x), dp.shard(y)),
+                "plain": lambda: engine.train_step(st, x, y)}
+        for fn in runs.values():
+            fn()
+        torch.cuda.synchronize()
+        spans = {k: [] for k in runs}
+        for _ in range(MD_TIMED_STEPS):
+            for k, fn in runs.items():
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn()
+                end.record()
+                spans[k].append((start, end))
+        torch.cuda.synchronize()
+        for k, ev in spans.items():
+            ms = [s.elapsed_time(e) for s, e in ev]
+            q = statistics.quantiles(ms, n=10)
+            res[f"step_ms_{k}_world1"] = statistics.median(ms)
+            res[f"step_ms_{k}_world1_p10_p90"] = [q[0], q[-1]]
+        res["dp_over_plain_world1"] = (res["step_ms_dp_world1"]
+                                       / res["step_ms_plain_world1"])
+
+        # the no-attention flagship's DP validation runs the upsample
+        na = get_engine(dict(MD_FLAGSHIP, backbone=backbone,
+                             use_attention=False), device=device)
+        st = dp.replicate(na.init_state(
+            torch.Generator().manual_seed(SEED), 1e-3, 1e-5))
+        want = len(decoder_shapes(st.model.eval(), b, size)[1])
+        val = dp.shard_loader(DeviceDataLoader(imgs[:b], masks[:b], b,
+                                               shuffle=False))
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        vm = na.run_eval_epoch(st, val)
+        ups = launch_counts()["upsample2x_concat"]
+        check(ups == want and want > 0 and np.isfinite(vm["loss"]),
+              f"multidevice (p1): the no-attention flagship's DP validation "
+              f"forward (B={b}) launched upsample2x_concat {ups} times; "
+              f"_fused_level predicts {want}")
+        res["launches"]["upsample2x_concat"] += ups
+    finally:
+        torch.distributed.destroy_process_group()
+    return res
+
+
+def _md_rank(rank: int, tmp: str, device: str, size: int, slide: int
+             ) -> int:
+    """(p2) and (p4) on rank ``rank`` of 2: gloo, both ranks on
+    ``device`` (cuda:0), flagship images of ``size``², a ``slide``² slide.
+    Writes its results and checks to ``<tmp>/md_<rank>.json``."""
+    from segtpu_torch.core import hlo_profile
+    from segtpu_torch.core.dist import (all_gather_rows, create_mesh,
+                                        init_process_group)
+    from segtpu_torch.infer.predict import nhwc_forward
+    from segtpu_torch.infer.tiled import make_tiled_predictor
+    from segtpu_torch.kernels import launch_counts, reset_launch_counts
+    from segtpu_torch.parallel import DataParallel, spatial_predict
+    from segtpu_torch.train.engine import get_engine
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    init_process_group(f"file://{tmp}/rdzv_world2", 2, rank, device=device,
+                       backend="gloo")
+    device = torch.device(device).type
+    res, checks = {"rank": rank}, []
+
+    def record(ok, what):
+        checks.append([bool(ok), what])
+
+    try:
+        mesh = create_mesh(device=device)
+        dp = DataParallel(mesh)
+        group = mesh.get_group(0)
+        b = TRAIN_CONFIG["batch_size"]
+        x, y = _md_batch(b, size, SEED + 30, device)
+
+        # f32 flagship step at global B=8 (4 rows a rank), and A=2
+        # accumulated micro-batches of 8
+        e32 = get_engine({"backbone": "resnet34", "use_attention": True,
+                          "loss_fn": "combo"}, device=device)
+        xa, ya = _md_batch(MD_ACCUM * b, size, SEED + 31, device)
+        xa, ya = (t.reshape(MD_ACCUM, b, *t.shape[1:]) for t in (xa, ya))
+        fresh = lambda: e32.init_state(torch.Generator().manual_seed(SEED),
+                                       1e-3, 1e-5)
+        got = {}
+        for kind, step, args in (
+                ("step", e32.train_step, (dp.shard(x), dp.shard(y))),
+                ("accum", e32.train_step_accum,
+                 (dp.shard(xa, dim=1), dp.shard(ya, dim=1)))):
+            st = dp.replicate(fresh())
+            st, m = step(st, *args)
+            sd = st.model.state_dict()
+            got[kind] = (float(m["loss"]), sd, _md_grads(st.model))
+            record(all(t.is_cuda for t in sd.values()) and all(
+                p.grad.is_cuda for p in st.model.parameters()),
+                f"(p2) f32 DP {kind}: every parameter, gradient and "
+                f"statistic on cuda")
+            # both ranks hold the same state: their checksums gathered
+            sums = torch.stack([v.double().sum() for v in sd.values()
+                                if v.is_floating_point()])[None]
+            both = all_gather_rows(sums, 2, group)
+            record(torch.equal(both[0], both[1]),
+                   f"(p2) f32 DP {kind}: both ranks hold the same "
+                   f"{sums.shape[1]} tensors after the update")
+        if rank == 0:
+            refs = {}
+            for kind, step, args in (("step", e32.train_step, (x, y)),
+                                     ("accum", e32.train_step_accum,
+                                      (xa, ya))):
+                st, m = step(fresh(), *args)
+                refs[kind] = (float(m["loss"]), st.model.state_dict(),
+                              _md_grads(st.model))
+            for kind in ("step", "accum"):
+                (lg, sg, gg), (lr_, sr, gr) = got[kind], refs[kind]
+                loss_err = abs(lg - lr_) / abs(lr_)
+                perr, serr = _md_state_err(sg, sr)
+                gerr = _md_grad_err(gg, gr)
+                mean_err = _md_grad_err({k: g / 2 for k, g in gg.items()},
+                                        gr)
+                record(loss_err <= TOL_MD_LOSS and serr <= TOL_MD_STATS
+                       and gerr <= TOL_MD_GRADS < mean_err,
+                       f"(p2) f32 DP {kind} at global B={b} on 2 ranks vs "
+                       f"the one-process step: loss {loss_err:.3g} (tol "
+                       f"{TOL_MD_LOSS}), running statistics {serr:.3g} of "
+                       f"their scale (tol {TOL_MD_STATS}), summed gradients "
+                       f"{gerr:.3g} of the largest (tol {TOL_MD_GRADS}; "
+                       f"their mean over the ranks {mean_err:.3g}); "
+                       f"parameters {perr:.3g} of the largest")
+                res[f"f32_{kind}"] = dict(
+                    loss_rel_err=loss_err, stats_err=serr, grad_err=gerr,
+                    grad_err_mean_reduction=mean_err, param_err=perr)
+            # what rank-local statistics and gradients give: a plain step
+            # on rank 0's 4 rows against the global step
+            st, m = e32.train_step(fresh(), x[:b // 2], y[:b // 2])
+            perr, serr = _md_state_err(st.model.state_dict(),
+                                       refs["step"][1])
+            gerr = _md_grad_err(_md_grads(st.model), refs["step"][2])
+            res["rank_local"] = dict(
+                loss_rel_err=abs(float(m["loss"]) - refs["step"][0])
+                / abs(refs["step"][0]), stats_err=serr, grad_err=gerr,
+                param_err=perr)
+            record(serr > TOL_MD_STATS and gerr > TOL_MD_GRADS,
+                   f"(p2) rank-local statistics and gradients (a plain step "
+                   f"on 4 of the 8 rows) miss the bars: running statistics "
+                   f"{serr:.3g} of their scale, gradients {gerr:.3g} of the "
+                   f"largest, loss {res['rank_local']['loss_rel_err']:.3g}")
+            del refs, st
+        del got, x, y, xa, ya
+        torch.cuda.empty_cache()
+
+        # bf16 DP step time at world 2 and one profiled step (p4)
+        eng = get_engine(dict(MD_FLAGSHIP, backbone="resnet34"),
+                         device=device)
+        x, y = _md_batch(b, size, SEED + 20, device)
+        st = dp.replicate(eng.init_state(torch.Generator().manual_seed(SEED),
+                                         1e-3, 1e-5))
+        step = lambda: eng.train_step(st, dp.shard(x), dp.shard(y))
+        step()
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(MD_WORLD2_STEPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            step()
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+        res["step_ms_dp_world2"] = statistics.median(ms)
+        res["step_ms_dp_world2_all"] = ms
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            step()
+            torch.cuda.synchronize()
+        summary = hlo_profile.collective_summary(prof, world=2)
+        coll = hlo_profile.extract_collectives(prof, world=2)
+        ar = sorted(c["payload_bytes"] for c in coll
+                    if c["opcode"] == "all-reduce")
+        params = sum(p.numel() * p.element_size()
+                     for p in st.model.parameters())
+        bns = [m for m in st.model.modules()
+               if type(m).__name__ == "BatchNorm2d"]
+        bn_bytes = 2 * 2 * 4 * sum(m.num_features for m in bns)
+        record(ar and ar[-1] == params and len(ar) == 1 + 2 * len(bns)
+               and sum(ar[:-1]) == bn_bytes,
+               f"(p4) profiled DP step: the gradient all-reduce carries "
+               f"{ar[-1] if ar else None} bytes = the {params} bytes of the "
+               f"parameters; {len(ar) - 1} BatchNorm syncs (want "
+               f"{2 * len(bns)}, {len(bns)} BatchNorms forward and "
+               f"backward) of {sum(ar[:-1])} bytes (want {bn_bytes})")
+        res["collectives"] = summary
+        res["param_bytes"] = params
+        res["batchnorms"] = len(bns)
+        res["bn_sync_bytes"] = sum(ar[:-1])
+        res["profile"] = hlo_profile.profile_trace(prof)
+        del st, eng
+        torch.cuda.empty_cache()
+
+        # the bf16 flagship (f32 parameters, autocast) row-sharded over
+        # the 2 ranks, and its tile batches sharded over them
+        model = _randomized_flagship(True, device, size=size)
+        dp.replicate(model)
+        slide = np.random.default_rng(SEED + 32).uniform(
+            0, 1, (slide, slide)).astype(np.float32)
+        auto = lambda: torch.autocast("cuda", dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with auto():
+            probs = spatial_predict(model, None, slide, mesh, halo=MD_HALO)
+        torch.cuda.synchronize()
+        res["spatial_ms"] = (time.perf_counter() - t0) * 1e3
+        gate = launch_counts()["attention_gate"]
+        launches = gate
+        record(gate == 4, f"(p2) spatial_predict: {gate} gate launches on "
+               f"this rank's band forward (want 4)")
+        if rank == 0:
+            # the two haloed bands (edge rows replicated at the image's
+            # edges) forwarded in this one process
+            img = torch.from_numpy(slide).to(device)[..., None]
+            hb, h = slide.shape[0] // 2, MD_HALO
+            top, bot = img[:1].expand(h, -1, -1), img[-1:].expand(h, -1, -1)
+            bands = [torch.cat([top, img[:hb + h]]),
+                     torch.cat([img[hb - h:], bot])]
+            with torch.inference_mode(), auto():
+                ref = torch.cat([torch.sigmoid(nhwc_forward(
+                    model, band[None])[0, h:h + hb].float())
+                    for band in bands]).cpu().numpy()
+            err = float(np.abs(probs - ref).max())
+            record(probs.shape == (*slide.shape, 1)
+                   and err <= TOL_MD_PROBS,
+                   f"(p2) spatial_predict of a {slide.shape[0]}² slide over 2 "
+                   f"bands (halo {h}, band forward {hb + 2 * h}×"
+                   f"{slide.shape[1]}) vs the "
+                   f"same two bands in one process: probs max_abs_err "
+                   f"{err:.3g} (tol {TOL_MD_PROBS})")
+            res["spatial_err"] = err
+        img = torch.from_numpy(slide).to(device)[..., None]
+        fwd = lambda t: nhwc_forward(model, t)
+        for mode, tile, overlap in (("halo", size, 32), ("blend", size, 64)):
+            sharded = make_tiled_predictor(fwd, tile=tile, overlap=overlap,
+                                           mode=mode, shard_tiles_axis="data")
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            with torch.inference_mode(), auto(), mesh:
+                got = torch.sigmoid(sharded(img).float())
+            torch.cuda.synchronize()
+            res[f"tiled_{mode}_ms"] = (time.perf_counter() - t0) * 1e3
+            gate = launch_counts()["attention_gate"]
+            launches += gate
+            with torch.inference_mode(), auto():
+                want = torch.sigmoid(make_tiled_predictor(
+                    fwd, tile=tile, overlap=overlap, mode=mode)(img).float())
+            err = float((got - want).abs().max())
+            record(gate == 4 and err <= TOL_MD_PROBS,
+                   f"(p2) {mode} tiles of the slide sharded over 2 ranks vs "
+                   f"unsharded: probs max_abs_err {err:.3g} (tol "
+                   f"{TOL_MD_PROBS}); {gate} gate launches on this rank's "
+                   f"tile batch (want 4)")
+            res[f"tiled_{mode}_err"] = err
+        res["gate_launches"] = launches
+    finally:
+        res["checks"] = checks
+        with open(f"{tmp}/md_{rank}.json", "w") as f:
+            json.dump(res, f)
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def _md_world_two(tmp: str, device, size: int, slide: int) -> dict:
+    """(p2), (p4): two ranks of this script on the card (gloo); each must
+    exit 0; their checks are made here."""
+    import os
+    env = dict(os.environ, OMP_NUM_THREADS="4")
+    dev = "cuda:0" if str(device) == "cuda" else str(device)
+    logs = [open(f"{tmp}/md_{r}.log", "w") for r in (0, 1)]
+    procs = [subprocess.Popen([sys.executable, __file__, "--md-rank",
+                               str(r), tmp, dev, str(size), str(slide)],
+                              stdout=logs[r],
+                              stderr=subprocess.STDOUT, env=env)
+             for r in (0, 1)]
+    deadline = time.monotonic() + MD_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    res = {}
+    for r, p in enumerate(procs):
+        ok = p.returncode == 0
+        tail = open(f"{tmp}/md_{r}.log").read()[-3000:]
+        check(ok, f"multidevice (p2): rank {r} of 2 (gloo, cuda:0) exited "
+              f"{p.returncode}" + ("" if ok else f":\n{tail}"))
+        try:
+            with open(f"{tmp}/md_{r}.json") as f:
+                res[r] = json.load(f)
+        except (OSError, ValueError):
+            check(False, f"multidevice (p2): rank {r} left no results")
+            continue
+        for ok, what in res[r].pop("checks"):
+            check(ok, f"multidevice rank {r} {what}")
+    return res
+
+
+def _md_fold_placement(device, size=32) -> dict:
+    """(p3): 2 folds streamed with each fold placed on ``cuda:0`` by
+    ``devices`` against the default placement (the dry run's stage 6)."""
+    from segtpu_torch.eval.fold_parallel import train_folds_parallel
+    rng = np.random.default_rng(SEED + 40)
+    folds = []
+    for _ in range(2):
+        fi = torch.from_numpy(rng.uniform(0, 1, (4, 1, size, size))
+                              .astype(np.float32)).to(device)
+        vi = torch.from_numpy(rng.uniform(0, 1, (2, 1, size, size))
+                              .astype(np.float32)).to(device)
+        folds.append((fi, (fi > 0.5).float(), vi, (vi > 0.5).float()))
+    cfg = {"backbone": "resnet_tiny", "use_attention": False,
+           "loss_fn": "combo", "img_size": (size, size), "batch_size": 2,
+           "num_epochs": 2, "seed": 3}
+    placed = train_folds_parallel(folds, cfg,
+                                  devices=[torch.device(device, 0)] * 2,
+                                  device=device)
+    plain = train_folds_parallel(folds, cfg, device=device)
+    hist = lambda r: [[m["loss"], m["iou"]] for m in r["val_metrics"]]
+    same = all(hist(a) == hist(b) for a, b in zip(placed, plain))
+    check(same and all(np.isfinite(hist(a)).all() for a in placed),
+          f"multidevice (p3): 2 folds placed by devices=['cuda:0', 'cuda:0'] "
+          f"equal the default placement ({[hist(a) for a in placed]})")
+    return {"folds_placed_equal": same}
+
+
+def phase_multidevice(device="cuda", backbone="resnet34", size=SIZE,
+                      slide=MD_SLIDE) -> dict:
+    """(p1)-(p4) of the module docstring and the ``multidevice`` line."""
+    import tempfile
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        # the rendezvous files and the ranks' logs and results; the checks
+        # print a failed rank's log tail
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_md_") as tmp:
+            res = _md_world_one(tmp, device, backbone, size)
+            ranks = _md_world_two(tmp, device, size, slide)
+        res.update(_md_fold_placement(device))
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+    r0 = ranks.get(0, {})
+    res.update({k: r0.get(k) for k in (
+        "step_ms_dp_world2", "step_ms_dp_world2_all", "spatial_ms",
+        "tiled_halo_ms", "tiled_blend_ms", "spatial_err", "tiled_halo_err",
+        "tiled_blend_err", "f32_step", "f32_accum", "rank_local",
+        "collectives", "param_bytes", "batchnorms", "bn_sync_bytes",
+        "profile")})
+    world2 = sum(r.get("gate_launches", 0) for r in ranks.values())
+    res["launches"]["attention_gate"] += world2
+    res["gate_launches_world2"] = world2
+    print("multidevice " + json.dumps(res), flush=True)
+    return res
+
+
 KERNEL_META = {
     "attention_gate": dict(
         source="segtpu_torch/csrc/attention_gate.cu",
@@ -3355,6 +3909,7 @@ def main() -> int:
     selection = phase_selection()
     inference = phase_inference()
     fused = phase_fused()
+    multi = phase_multidevice()
     # each kernel's launches on its own main paths: the serving models
     # and the training runs that run it, or the bench entry points for the
     # conv and the pair
@@ -3366,7 +3921,8 @@ def main() -> int:
                 + folds["launches"]["attention_gate"]
                 + selection["launches"]["attention_gate"]
                 + inference["launches"]["attention_gate"]
-                + fused["launches"]["attention_gate"],
+                + fused["launches"]["attention_gate"]
+                + multi["launches"]["attention_gate"],
                 "upsample2x_concat": served["upsample2x_concat"]["launches"]
                 + trained["upsample_launches_no_attention"]
                 + encoders["launches"]["upsample2x_concat"]
@@ -3374,7 +3930,8 @@ def main() -> int:
                 + folds["launches"]["upsample2x_concat"]
                 + selection["launches"]["upsample2x_concat"]
                 + inference["launches"]["upsample2x_concat"]
-                + fused["launches"]["upsample2x_concat"],
+                + fused["launches"]["upsample2x_concat"]
+                + multi["launches"]["upsample2x_concat"],
                 "conv3x3_bn_relu": benched["conv3x3_bn_relu"],
                 "conv_pair_bn_relu": benched["conv_pair_bn_relu"]}
 
@@ -3412,4 +3969,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--md-rank"]:     # a rank of phase (p2)
+        sys.exit(_md_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4],
+                          int(sys.argv[5]), int(sys.argv[6])))
     sys.exit(main())

@@ -237,6 +237,30 @@ def _halo(tile: int, overlap: int) -> int:
     return halo
 
 
+def _sharded_apply(apply_fn: Callable, axis: str) -> Callable:
+    """``apply_fn`` over the ranks of ``axis`` of the mesh current at the
+    call."""
+    from segtpu_torch.core.dist import (all_gather_rows, current_mesh,
+                                        process_rows)
+
+    def apply(x: torch.Tensor) -> torch.Tensor:
+        mesh = current_mesh()
+        if mesh is None or axis not in (mesh.mesh_dim_names or ()):
+            raise RuntimeError(
+                f"shard_tiles_axis={axis!r} needs a current mesh with that "
+                f"dimension: call the predictor inside `with mesh:` "
+                f"(segtpu_torch.core.dist.create_mesh)")
+        group = mesh.get_group(axis)
+        n, bt = group.size(), x.shape[0]
+        padded = -(-bt // n) * n
+        if padded > bt:
+            x = torch.cat([x, x[-1:].expand(padded - bt, *x.shape[1:])])
+        mine = x[process_rows(padded, n, group.rank())]
+        return all_gather_rows(apply_fn(mine), padded, group)[:bt]
+
+    return apply
+
+
 def make_tiled_predictor_many(apply_fn: Callable, tile: int = 512,
                               overlap: int = 64,
                               batch_tiles: Optional[int] = None,
@@ -273,12 +297,15 @@ def make_tiled_predictor(apply_fn: Callable, tile: int = 512,
     against the dense forward for any model whose receptive radius is at
     most the halo).
 
-    ``shard_tiles_axis`` shards tile batches over devices in the JAX
-    package; multi-device inference is ROADMAP A21."""
+    ``shard_tiles_axis``: the name of a dimension of the current mesh
+    (``with mesh:``, ``segtpu_torch.core.dist.create_mesh``) over whose
+    ranks each tile batch is split: each rank forwards its block of tiles
+    (the batch padded with copies of its last tile to a multiple of the
+    ranks) and the logits are gathered, so that every rank returns the
+    whole image, as the JAX package's global array."""
     _check_mode(mode)
     if shard_tiles_axis is not None:
-        raise NotImplementedError(
-            "shard_tiles_axis needs multi-device inference (ROADMAP A21)")
+        apply_fn = _sharded_apply(apply_fn, shard_tiles_axis)
     many = make_tiled_predictor_many(apply_fn, tile=tile, overlap=overlap,
                                      batch_tiles=batch_tiles, mode=mode)
 

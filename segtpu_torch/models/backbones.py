@@ -66,11 +66,23 @@ class BatchNorm2d(nn.BatchNorm2d):
     in the ``vmap`` fold-parallel strategy) a train-mode forward is the
     formula written out in tensor ops: under ``vmap`` on CUDA torch's
     fused batch norm refuses a one-channel input (the batching rule hands
-    it a view that is not contiguous)."""
+    it a view that is not contiguous).
+
+    Under data parallelism (``sync`` set by ``synced_batch_stats``, world
+    size ≥ 2) a train-mode forward normalises by the statistics of the
+    global batch: each rank's per-channel sum and sum of squares are
+    summed over the ranks with autograd, the variance is E[x²] − E[x]²
+    as flax computes it, and the running statistics move by the global
+    mean and biased variance over the global count. One value per
+    channel in the whole batch takes the same formula: its variance is
+    exactly 0, as in the one-value case above."""
 
     def __init__(self, num_features: int, **kw):
         super().__init__(num_features, **kw)
         self.update_stats = True
+        # the data-parallel step's view of the batch (None: this rank's
+        # batch is the whole batch)
+        self.sync = None
         # scratch for the batch's mean and unbiased variance (not state):
         # torch's update with momentum 1 writes them here
         self.register_buffer("_batch_mean", torch.zeros_like(
@@ -81,6 +93,8 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if self.sync is not None:
+            return self._forward_synced(x)
         n = x.numel() // x.shape[1]
         if n == 1:
             return self._forward_one_value(x)
@@ -125,6 +139,31 @@ class BatchNorm2d(nn.BatchNorm2d):
                 self.num_batches_tracked.add_(1)
         return out.to(x.dtype)
 
+    def _forward_synced(self, x):
+        """The train-mode forward over the global batch: ``sync.rows``
+        rows of the same height and width, ``sync.all_reduce`` the
+        differentiable sum over the ranks (one collective of 2·C values,
+        and one of their gradients in backward)."""
+        xf = x if x.dtype in (torch.float32, torch.float64) else x.float()
+        c = x.shape[1]
+        n = self.sync.rows * x.shape[2] * x.shape[3]
+        sums = self.sync.all_reduce(torch.cat([
+            xf.sum((0, 2, 3)), xf.square().sum((0, 2, 3))]))
+        mean = sums[:c] / n
+        var = torch.relu(sums[c:] / n - mean.square())
+        shape = (1, -1, 1, 1)
+        out = (xf - mean.view(shape)) * (
+            torch.rsqrt(var + self.eps) * self.weight).view(shape) \
+            + self.bias.view(shape)
+        if self.update_stats:
+            m = self.momentum
+            with torch.no_grad():
+                self.running_mean.lerp_(mean.to(self.running_mean.dtype), m)
+                self.running_var.mul_(1.0 - m).add_(
+                    var.to(self.running_var.dtype), alpha=m)
+                self.num_batches_tracked.add_(1)
+        return out.to(x.dtype)
+
     def _forward_one_value(self, x):
         """Train-mode forward of a (1, C, 1, 1) input: x − mean is 0, so
         the output is the shift, and x and the weight get zero gradients,
@@ -157,6 +196,24 @@ def frozen_running_stats(model: nn.Module):
     finally:
         for bn in bns:
             bn.update_stats = True
+
+
+@contextlib.contextmanager
+def synced_batch_stats(model: nn.Module, sync):
+    """Within it, train-mode forwards of ``model``'s BatchNorms take the
+    global batch's statistics through ``sync`` (an object with ``rows``,
+    the global batch's rows, and ``all_reduce``, a differentiable sum over
+    the ranks); with ``sync`` None, nothing changes. Hold it over the
+    backward too where a checkpointed forward is re-run there."""
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm2d)] \
+        if sync is not None else []
+    for bn in bns:
+        bn.sync = sync
+    try:
+        yield
+    finally:
+        for bn in bns:
+            bn.sync = None
 
 
 def _maxpool_3x3_s2(x: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,204 @@
+"""Data parallelism over a mesh of ranks (port of
+``segtpu/parallel/data_parallel.py``), with GSPMD's semantics: a sharded
+step equals the single-device step on the same global batch.
+
+One rank per device. Each rank holds the global batch's rows of its
+block (``shard_batch``: a ``DTensor`` placed ``Shard(0)``, whose shape is
+the global one) and a replica of the model and optimizer
+(``replicate_state``: broadcast from rank 0). The engine's steps and
+epochs (``segtpu_torch/train/engine.py``) take such batches as they take
+plain ones, and then:
+
+- the BatchNorms normalise by the global batch's statistics (a
+  differentiable sum of per-channel sums over the ranks,
+  ``models/backbones.py::BatchNorm2d``), as BatchNorm's batch mean under
+  GSPMD is a global reduction;
+- the logits and masks are gathered (with autograd, each rank's rows
+  padded to the largest block) and the loss and the metrics are computed
+  on the global batch on every rank: Dice, Tversky and the metrics sum
+  over the whole batch, so a mean of per-rank losses would be another
+  function;
+- the gradients are summed over the ranks before the optimizer step.
+  Every rank computes the same loss of the gathered rows, so the
+  gather's backward hands each rank its own rows' gradient (no sum), and
+  the sum of the ranks' parameter gradients is the global gradient.
+
+With one rank in the mesh the step is the single-device step, op for
+op. Blocks are the JAX package's ceil partition, so a batch that does
+not divide by the world size, or has fewer rows than ranks, leaves the
+last ranks short or empty, and the step still equals the single-device
+one.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import torch
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, Shard
+
+from segtpu_torch.core.dist import (all_reduce_, all_reduce_sum,
+                                    batch_sharding, broadcast_, create_mesh,
+                                    gather_rows, process_rows)
+
+
+def shard_batch(arr: torch.Tensor, mesh: DeviceMesh, axis: str = "data",
+                dim: int = 0) -> DTensor:
+    """The global batch ``arr`` (the same on every rank) as a ``DTensor``
+    holding this rank's block of rows along ``dim`` (0, or 1 for the
+    stacked micro-batches of ``train_step_accum``), sharded over
+    ``axis``."""
+    group = mesh.get_group(axis)
+    rows = process_rows(arr.shape[dim], group.size(), group.rank())
+    local = arr.narrow(dim, rows.start, rows.stop - rows.start)
+    placements = [Shard(dim) if isinstance(p, Shard) else p
+                  for p in batch_sharding(mesh, axis)]
+    return DTensor.from_local(local, mesh, placements, run_check=False,
+                              shape=arr.shape, stride=arr.stride())
+
+
+def _tensors(obj):
+    """The tensors of a state, model, optimizer or container, in a fixed
+    order."""
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif isinstance(obj, torch.nn.Module):
+        yield from obj.state_dict().values()
+    elif isinstance(obj, torch.optim.Optimizer):
+        for group in obj.param_groups:
+            for k in sorted(group):
+                if k != "params" and isinstance(group[k], torch.Tensor):
+                    yield group[k]
+        for p in (p for g in obj.param_groups for p in g["params"]):
+            for k in sorted(obj.state.get(p, {})):
+                yield from _tensors(obj.state[p][k])
+    elif isinstance(obj, dict):
+        for k in obj:
+            yield from _tensors(obj[k])
+    elif isinstance(obj, (list, tuple)):
+        for x in obj:
+            yield from _tensors(x)
+    elif hasattr(obj, "model"):    # TrainState
+        yield from _tensors(obj.model)
+        if getattr(obj, "optimizer", None) is not None:
+            yield from _tensors(obj.optimizer)
+
+
+def replicate_state(state: Any, mesh: DeviceMesh, axis: str = "data"):
+    """Every rank's ``state`` (a ``TrainState``, a model, an optimizer, or
+    dicts, lists and tuples of tensors) takes rank 0's values, in place:
+    parameters, buffers and the optimizer's state and learning rate. One
+    broadcast per dtype and device, of the tensors laid end to end.
+    Returns ``state``."""
+    group = mesh.get_group(axis)
+    src = torch.distributed.get_global_rank(group, 0)
+    buckets = {}
+    for t in _tensors(state):
+        buckets.setdefault((t.dtype, t.device), []).append(t)
+    for ts in buckets.values():
+        flat = broadcast_(torch.cat([t.detach().reshape(-1) for t in ts]),
+                          src, group)
+        for t, v in zip(ts, flat.split([t.numel() for t in ts])):
+            with torch.no_grad():
+                t.copy_(v.view_as(t))
+    return state
+
+
+class StepSync:
+    """A data-parallel step's view of its batch: ``rows`` global rows on
+    the ranks of ``group``."""
+
+    def __init__(self, group, rows: int):
+        self.group, self.rows = group, int(rows)
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """Differentiable sum over the ranks (the BatchNorms' sums)."""
+        return all_reduce_sum(t, self.group)
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """The global batch of ``t``'s rows, on every rank, with autograd."""
+        return gather_rows(t, self.rows, self.group)
+
+    def reduce_gradients(self, params) -> None:
+        """Sum the parameters' gradients over the ranks: one collective of
+        the gradients laid end to end."""
+        grads = [p.grad for p in params if p.grad is not None]
+        flat = all_reduce_(torch.cat([g.reshape(-1) for g in grads]),
+                           self.group)
+        for g, v in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(v.view_as(g))
+
+
+def local_batch(images, masks):
+    """(this rank's images, its masks, the step's ``StepSync``) of a
+    sharded batch; a plain batch, or one sharded over a single rank,
+    passes through with ``None``, so that its step is the single-device
+    one."""
+    if not isinstance(images, DTensor):
+        return images, masks, None
+    (dim, shard), = [(i, p) for i, p in enumerate(images.placements)
+                     if isinstance(p, Shard)]
+    group = images.device_mesh.get_group(dim)
+    sync = StepSync(group, images.shape[shard.dim]) if group.size() > 1 \
+        else None
+    return images.to_local(), masks.to_local(), sync
+
+
+class ShardedLoader:
+    """A ``DeviceDataLoader`` whose batches come out sharded: each global
+    batch is the loader's own (the same permutation on every rank, from
+    the same generator), and each rank keeps its block of rows."""
+
+    def __init__(self, loader, mesh: DeviceMesh, axis: str = "data"):
+        self.loader, self.mesh, self.axis = loader, mesh, axis
+
+    def __getattr__(self, name):
+        return getattr(self.loader, name)
+
+    def __len__(self) -> int:
+        return len(self.loader)
+
+    def batches(self, generator: Optional[torch.Generator] = None):
+        """(full batches: a list of sharded images and one of masks,
+        remainder pair or None), as ``DeviceDataLoader.batches``."""
+        (fi, fm), rem = self.loader.batches(generator)
+        shard = lambda t: shard_batch(t, self.mesh, self.axis)
+        full = ([shard(x) for x in fi], [shard(y) for y in fm])
+        return full, (None if rem is None else tuple(map(shard, rem)))
+
+
+def shard_loader(loader, mesh: DeviceMesh, axis: str = "data"
+                 ) -> ShardedLoader:
+    """``loader`` with its batches sharded over ``axis``."""
+    return ShardedLoader(loader, mesh, axis)
+
+
+class DataParallel:
+    """A mesh and the placements of a data-parallel run::
+
+        dp = DataParallel()                     # every rank, 1-D mesh
+        state = dp.replicate(state)
+        loader = dp.shard_loader(loader)
+        state, metrics = engine.run_train_epoch(state, loader, lr)
+        state, metrics = engine.train_step(state, dp.shard(x), dp.shard(y))
+    """
+
+    def __init__(self, mesh: Optional[DeviceMesh] = None,
+                 axis: str = "data", *, device="cuda"):
+        self.mesh = mesh if mesh is not None else create_mesh(
+            axis_names=(axis,), device=device)
+        self.axis = axis
+
+    @property
+    def n_devices(self) -> int:
+        return self.mesh.size()
+
+    def shard(self, arr: torch.Tensor, dim: int = 0) -> DTensor:
+        return shard_batch(arr, self.mesh, self.axis, dim)
+
+    def replicate(self, state):
+        return replicate_state(state, self.mesh, self.axis)
+
+    def shard_loader(self, loader) -> ShardedLoader:
+        return shard_loader(loader, self.mesh, self.axis)

@@ -48,8 +48,10 @@ from segtpu_torch import resolve_device
 from segtpu_torch.data.loader import DeviceDataLoader
 from segtpu_torch.losses import get_loss_function
 from segtpu_torch.metrics import calculate_metrics
-from segtpu_torch.models.backbones import frozen_running_stats
+from segtpu_torch.models.backbones import (frozen_running_stats,
+                                           synced_batch_stats)
 from segtpu_torch.models.unet import UNetWithBackbone
+from segtpu_torch.parallel.data_parallel import local_batch
 from segtpu_torch.train.optim import (functional_init, functional_step,
                                       load_functional_state, make_optimizer,
                                       set_learning_rate)
@@ -215,34 +217,47 @@ class TrainEngine:
         return model(images)
 
     def _metric_vec(self, logits, masks, loss) -> torch.Tensor:
+        """The metrics and the loss, float32 (float64 for a float64
+        loss)."""
         with torch.no_grad():
             m = self._metrics(self._act(logits.detach()), masks)
             m["loss"] = loss.detach()
-            return torch.stack([m[k].float() for k in METRIC_KEYS])
+            dt = torch.promote_types(loss.dtype, torch.float32)
+            return torch.stack([m[k].to(dt) for k in METRIC_KEYS])
 
-    def _micro_step(self, model, images, masks, scale: float
+    def _micro_step(self, model, images, masks, scale: float, sync=None
                     ) -> torch.Tensor:
         """Forward, loss, backward (gradients added, scaled by
-        ``scale``); returns the metric vector of the pre-update logits."""
-        with self.autocast():
-            logits = _at_least_f32(self._forward_train(model, images))
-        loss = self.loss_fn(logits, masks)
-        (loss * scale if scale != 1.0 else loss).backward()
+        ``scale``); returns the metric vector of the pre-update logits.
+        Under data parallelism (``sync``, ``parallel/data_parallel.py``)
+        the BatchNorms take the global batch's statistics and the loss and
+        the metrics the gathered global batch."""
+        with synced_batch_stats(model, sync):
+            with self.autocast():
+                logits = _at_least_f32(self._forward_train(model, images))
+            if sync is not None:
+                logits, masks = sync.gather(logits), sync.gather(masks)
+            loss = self.loss_fn(logits, masks)
+            (loss * scale if scale != 1.0 else loss).backward()
         return self._metric_vec(logits, masks, loss)
 
     def _train_step_vec(self, state: TrainState, images, masks
                         ) -> torch.Tensor:
         model, opt = state.model, state.optimizer
+        images, masks, sync = local_batch(images, masks)
         model.train()
         opt.zero_grad(set_to_none=True)
-        vec = self._micro_step(model, images, masks, 1.0)
+        vec = self._micro_step(model, images, masks, 1.0, sync)
+        if sync is not None:
+            sync.reduce_gradients(model.parameters())
         opt.step()
         return vec
 
     def train_step(self, state: TrainState, images, masks,
                    lr: Optional[float] = None
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        """One update on a batch (B, 1, S, S); metrics as 0-d tensors."""
+        """One update on a batch (B, 1, S, S), plain or sharded
+        (``parallel.shard_batch``); metrics as 0-d tensors."""
         if lr is not None:
             set_learning_rate(state.optimizer, lr)
         vec = self._train_step_vec(state, images, masks)
@@ -255,35 +270,45 @@ class TrainEngine:
         micro-batches in sequence folded into one update. Each micro-batch
         normalises by its own BatchNorm statistics and moves the running
         statistics in turn; the gradients and the metrics are averaged
-        over A."""
+        over A. Sharded, the micro-batches' rows are split over the ranks
+        (``shard_batch(..., dim=1)``) and the gradients summed over them
+        once, before the update."""
         if lr is not None:
             set_learning_rate(state.optimizer, lr)
         model, opt = state.model, state.optimizer
+        images, masks, sync = local_batch(images, masks)
         model.train()
         opt.zero_grad(set_to_none=True)
         a = images.shape[0]
-        total = sum(self._micro_step(model, images[i], masks[i], 1.0 / a)
+        total = sum(self._micro_step(model, images[i], masks[i], 1.0 / a,
+                                     sync)
                     for i in range(a))
+        if sync is not None:
+            sync.reduce_gradients(model.parameters())
         opt.step()
         return state, dict(zip(METRIC_KEYS, total / a))
 
     def _eval_step_vec(self, state: TrainState, images, masks
                        ) -> torch.Tensor:
         model = state.model
+        images, masks, sync = local_batch(images, masks)
         model.eval()
         with torch.no_grad(), self.autocast():
             logits = _at_least_f32(model(images))
+        if sync is not None:
+            logits, masks = sync.gather(logits), sync.gather(masks)
         return self._metric_vec(logits, masks, self.loss_fn(logits, masks))
 
     # ------------------------------------------------------------ epochs
 
     def _epoch_totals(self, step, loader, generator=None) -> torch.Tensor:
         """Sample-weighted metric totals (6,) of ``step`` over the
-        loader's batches, on the device."""
+        loader's batches (plain, or sharded by ``parallel.shard_loader``:
+        weighted by their global rows), on the device."""
         (fi, fm), rem = loader.batches(generator)
         totals = torch.zeros(len(METRIC_KEYS), device=loader.device)
-        for i in range(fi.shape[0]):
-            totals += step(fi[i], fm[i]) * fi.shape[1]
+        for x, y in zip(fi, fm):
+            totals += step(x, y) * x.shape[0]
         if rem is not None:
             totals += step(*rem) * rem[0].shape[0]
         return totals

@@ -428,6 +428,12 @@ def run_training_fused(engine: TrainEngine, state: TrainState,
     best_model_state (a ``state_dict`` copy of the best weights, or
     None).
     """
+    if (torch.distributed.is_available() and torch.distributed.is_initialized()
+            and torch.distributed.get_world_size() > 1):
+        raise NotImplementedError(
+            "fused_run under a process group of more than one rank is not "
+            "ported: data-parallel fused run (ROADMAP A23); train with the "
+            "stepwise loop there")
     runner = get_runner(engine, state, train_images, val_images, batch_size)
     return runner.run(
         state, DeviceDataLoader(train_images, train_masks, batch_size,

@@ -146,13 +146,27 @@ def test_port_trained_weights_load_into_the_jax_package(tmp_path):
                                      .numpy())), atol=1e-4)
 
 
-def test_parts_left_out_raise_with_their_roadmap_item():
-    """TTA, tiling and export are ported; what is left of inference is
-    tiling across devices (A21). An unfitted Segmenter refuses every
-    inference call."""
-    _, imgs, _ = _fitted("resnet_tiny", True)
-    with pytest.raises(NotImplementedError, match="A21"):
-        make_tiled_predictor(lambda x: x, shard_tiles_axis="tiles")
+def test_parts_left_out_raise_with_their_roadmap_item(tmp_path):
+    """TTA, tiling, export and, since A21, tiling across devices are
+    ported: the fitted U-Net's tiles sharded over a 2-rank gloo mesh equal
+    its unsharded tiling within 1e-5 in both modes and both halo assembly
+    paths, and without a current mesh the sharded tiler refuses. An
+    unfitted Segmenter refuses every inference call."""
+    from torch_dist_worker import launch
+    seg, imgs, _ = _fitted("resnet_tiny", True)
+    with pytest.raises(RuntimeError, match="with mesh"):
+        make_tiled_predictor(lambda x: x, tile=32, overlap=8,
+                             shard_tiles_axis="tiles")(np.zeros(
+                                 (40, 40, 1), np.float32))
+    img = np.random.default_rng(3).uniform(size=(96, 96, 1)).astype(
+        np.float32)
+    torch.save({"img": torch.from_numpy(img),
+                "state_dict": seg.state.model.state_dict()},
+               tmp_path / "inputs.pt")
+    for rank in launch("tiled", 2, tmp_path):
+        assert len(rank) == 8
+        for case, err in rank.items():
+            assert err <= 1e-5, (case, err)
     unfitted = Segmenter(backbone="resnet_tiny", device="cpu")
     for call in (lambda: unfitted.predict(imgs[:1]),
                  lambda: unfitted.predict_proba(imgs[:1], tta=True),

@@ -769,3 +769,106 @@ def test_replayed_run_equals_the_same_steps_run_eagerly(deterministic):
                    (a["final_state"], b["final_state"])):
         da, db = sa.model.state_dict(), sb.model.state_dict()
         assert all(torch.equal(da[k], db[k]) for k in da)
+
+
+@pytest.fixture
+def nccl_world_one(deterministic, tmp_path):
+    """An NCCL process group of one rank (this process) and its mesh."""
+    from segtpu_torch.core.dist import create_mesh, init_process_group
+    init_process_group(f"file://{tmp_path}/rdzv", 1, 0, device="cuda:0")
+    try:
+        yield create_mesh(device="cuda")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def test_dp_step_at_world_one_is_the_plain_step(nccl_world_one):
+    """``DataParallel`` over one rank (NCCL) takes the single-device
+    arithmetic: loss, metrics, every parameter and BatchNorm statistic
+    after a bf16 step equal the plain engine's bit for bit."""
+    from segtpu_torch.parallel import DataParallel
+    from segtpu_torch.train.engine import get_engine
+    engine = get_engine({"backbone": "resnet_tiny", "use_attention": True,
+                         "loss_fn": "combo", "dtype": "bfloat16"},
+                        device="cuda")
+    imgs, masks = _blob_arrays(8, 64, 2)
+    x = (torch.from_numpy(imgs[:, None]).float() / 255).cuda().contiguous(
+        memory_format=torch.channels_last)
+    y = torch.from_numpy(masks[:, None]).float().cuda()
+    dp = DataParallel(nccl_world_one)
+    outs = []
+    for shard in (dp.shard, lambda t: t):
+        state = engine.init_state(torch.Generator().manual_seed(0), 1e-3,
+                                  1e-5)
+        dp.replicate(state)
+        state, m = engine.train_step(state, shard(x), shard(y))
+        outs.append((torch.stack(list(m.values())).cpu(),
+                     state.model.state_dict()))
+    (ma, da), (mb, db) = outs
+    assert torch.equal(ma, mb)
+    assert all(torch.equal(da[k], db[k]) for k in da)
+
+
+def test_synced_batchnorm_at_world_one_equals_cudnns(nccl_world_one):
+    """The global-batch BatchNorm (E[x²] − E[x]², one NCCL all-reduce of
+    the sums) at world 1 on the card against the class's cuDNN train-mode
+    forward: outputs, input and weight gradients (of a random projection
+    of the output, whose input gradient BatchNorm's backward does not
+    cancel) within 1e-5 of their scale; both move the running variance
+    by the biased variance."""
+    from segtpu_torch.models.backbones import BatchNorm2d, synced_batch_stats
+    from segtpu_torch.parallel.data_parallel import StepSync
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = (torch.randn(4, 32, 16, 16, generator=gen, device="cuda") * 3 + 1
+         ).contiguous(memory_format=torch.channels_last)
+    proj = torch.randn(x.shape, generator=gen, device="cuda")
+    res = []
+    for sync in (None, StepSync(nccl_world_one.get_group(0), 4)):
+        bn = BatchNorm2d(32, device="cuda").train()
+        xi = x.clone().requires_grad_(True)
+        with synced_batch_stats(bn, sync):
+            out = bn(xi)
+            (out * proj).sum().backward()
+        res.append((out.detach(), xi.grad, bn.weight.grad,
+                    bn.running_mean.clone(), bn.running_var.clone()))
+    for a, b in zip(*res):
+        assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
+    var = x.float().var((0, 2, 3), unbiased=False)
+    torch.testing.assert_close(res[1][4], 0.9 + 0.1 * var, rtol=1e-5,
+                               atol=0)
+
+
+_NCCL_TWO_RANKS = """\
+import datetime, sys, torch, torch.distributed as dist
+torch.cuda.set_device(0)
+dist.init_process_group("nccl", init_method=sys.argv[1], world_size=2,
+                        rank=int(sys.argv[2]),
+                        timeout=datetime.timedelta(seconds=60))
+t = torch.ones(1, device="cuda")
+try:
+    dist.all_reduce(t)
+    torch.cuda.synchronize()
+    print("all_reduce ran")
+except Exception as e:
+    print("refused:", e)
+"""
+
+
+def test_nccl_refuses_two_ranks_on_one_card(cuda, tmp_path):
+    """Why ``chip_smoke.py``'s world-2 phase runs on gloo: NCCL refuses
+    two ranks on one device ("Duplicate GPU detected")."""
+    import subprocess
+    import sys
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _NCCL_TWO_RANKS, f"file://{tmp_path}/rdzv",
+         str(r)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in (0, 1)]
+    try:
+        outs = [p.communicate(timeout=120)[0] for p in procs]
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.communicate()
+        pytest.fail("two NCCL ranks on one card hung past 120 s")
+    for out in outs:
+        assert "Duplicate GPU detected" in out, out[-2000:]

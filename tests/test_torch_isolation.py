@@ -43,8 +43,10 @@ def test_sources_cover_every_port_module():
     K-fold harness, fold-parallel training, the drivers (forward selection
     too), the CLI, the metrics log, TensorBoard writer, profiling hooks and
     plots, tiled and TTA inference, the serving export, the HTTP server
-    and its tool, the LRU cache and the fused training run, so the tests
-    here check them too."""
+    and its tool, the LRU cache, the fused training run, and the
+    multi-device modules (process groups and meshes, the profile reader,
+    data parallelism, multi-process input, row-sharded inference), so the
+    tests here check them too."""
     names = {str(p.relative_to(ROOT)) for p in SOURCES}
     for mod in ("kernels/attention_gate.py", "kernels/fused_conv.py",
                 "kernels/fused_block.py", "tools/__init__.py",
@@ -63,7 +65,9 @@ def test_sources_cover_every_port_module():
                 "viz/plots.py", "tools/experiment_runs.py",
                 "infer/tiled.py", "infer/tta.py", "infer/export.py",
                 "infer/serve.py", "tools/serve.py", "core/caching.py",
-                "train/fused_run.py"):
+                "train/fused_run.py", "core/dist.py", "core/hlo_profile.py",
+                "parallel/__init__.py", "parallel/data_parallel.py",
+                "parallel/multihost.py", "parallel/spatial.py"):
         assert f"segtpu_torch/{mod}" in names
     assert "chip_smoke.py" in names
 

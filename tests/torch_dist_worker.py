@@ -1,0 +1,317 @@
+"""Ranks of the port's multi-process tests (gloo on the CPU).
+
+``launch(scenario, world, tmp)`` starts ``world`` processes of this file,
+which meet at ``file://<tmp>/rdzv_<scenario>`` (no TCP port, so that test
+processes running side by side cannot collide), each on one intra-op
+thread, run ``scenario`` on the inputs the test wrote to
+``<tmp>/inputs.pt`` and write ``<tmp>/<scenario>_<rank>.pt``. It waits
+for them with a deadline of its own and kills every rank when it
+passes, so that a hung collective fails one test.
+
+This module imports torch and segtpu_torch only (never the test modules,
+which import JAX):
+
+    python tests/torch_dist_worker.py <scenario> <world> <rank> <tmp>
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+
+import torch  # noqa: E402
+
+
+def launch(scenario: str, world: int, tmp, timeout: float = 90.0) -> list:
+    """Run ``scenario`` on ``world`` ranks; their results, by rank."""
+    tmp = str(tmp)
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=ROOT)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), scenario, str(world),
+         str(r), tmp], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, env=env, cwd=ROOT) for r in range(world)]
+    deadline = time.monotonic() + timeout
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        for p in procs:
+            p.communicate()
+        raise AssertionError(f"{scenario}: ranks still running after "
+                             f"{timeout} s; killed")
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, \
+            f"{scenario} rank {r} exited {p.returncode}:\n{out[-4000:]}"
+    return [torch.load(os.path.join(tmp, f"{scenario}_{r}.pt"),
+                       weights_only=False) for r in range(world)]
+
+
+# ------------------------------------------------------------- scenarios
+
+def _engine(cfg):
+    from segtpu_torch.train.engine import get_engine
+    return get_engine({"backbone": "resnet_tiny", "loss_fn": "combo",
+                       **cfg}, device="cpu")
+
+
+def _state(engine, inputs, dtype=torch.float64):
+    from segtpu_torch.train.engine import TrainState
+    model = engine.build_model()
+    model.load_state_dict(inputs["state_dict"])
+    model.to(dtype)
+    return TrainState(model, engine.make_optimizer(model, inputs["lr"],
+                                                   inputs["wd"]))
+
+
+def _sd(state):
+    return {k: v.detach().clone() for k, v in
+            state.model.state_dict().items()}
+
+
+def scenario_dp(inputs, rank, world):
+    """Mesh and input placement, one float64 DP step, an accumulated step,
+    replicate_state, and a DP epoch over sharded loaders (the references
+    are the single-device port on rank 0)."""
+    from segtpu_torch.core.dist import create_mesh
+    from segtpu_torch.data.loader import DeviceDataLoader
+    from segtpu_torch.parallel import (DataParallel, global_batch_from_local,
+                                       process_local_slice, replicate_state)
+
+    out = {}
+    mesh = create_mesh(device="cpu")
+    out["mesh"] = (tuple(mesh.shape), mesh.mesh_dim_names)
+    mesh2 = create_mesh(axis_sizes=(world, 1), axis_names=("data", "spatial"),
+                        device="cpu")
+    out["mesh2"] = (tuple(mesh2.shape), mesh2.mesh_dim_names)
+    x, y = inputs["x"], inputs["y"]
+    sl = process_local_slice(10)
+    out["slice"] = (sl.start, sl.stop)
+    gb = global_batch_from_local(x[process_local_slice(x.shape[0])], mesh)
+    out["global"] = (tuple(gb.shape), torch.equal(
+        gb.to_local(), x[process_local_slice(x.shape[0])]))
+
+    dp = DataParallel(mesh)
+    for key in ("cfg", "cfg_adam"):
+        engine = _engine(inputs[key])
+        st = _state(engine, inputs)
+        st, m = engine.train_step(st, dp.shard(x), dp.shard(y))
+        out[key] = {"sd": _sd(st), "metrics": {k: float(v) for k, v in
+                                               m.items()}}
+    if rank == 0:
+        ref = _state(engine, inputs)
+        ref, m = engine.train_step(ref, x, y)
+        out["adam_ref"] = {"sd": _sd(ref), "metrics": {
+            k: float(v) for k, v in m.items()}}
+
+    # accumulation: A=2 micro-batches of 4 rows, rows split per rank
+    xa = torch.stack([x, inputs["ex"][:4]])
+    ya = torch.stack([y, inputs["ey"][:4]])
+    st = _state(engine, inputs)
+    st, m = engine.train_step_accum(st, dp.shard(xa, dim=1),
+                                    dp.shard(ya, dim=1))
+    out["accum"] = {"sd": _sd(st), "metrics": torch.stack(list(m.values()))}
+    if rank == 0:
+        ref = _state(engine, inputs)
+        ref, mr = engine.train_step_accum(ref, xa, ya)
+        out["accum_ref"] = {"sd": _sd(ref),
+                            "metrics": torch.stack(list(mr.values()))}
+
+    # replicate_state: rank 1's weights and moments perturbed, then rank
+    # 0's broadcast
+    st = _state(engine, inputs)
+    st, _ = engine.train_step(st, x, y)
+    before = {**_sd(st), **{f"opt{i}": t.clone() for i, t in enumerate(
+        v for s in st.optimizer.state.values() for v in s.values())}}
+    if rank == 1:
+        with torch.no_grad():
+            for p in st.model.parameters():
+                p.add_(1.0)
+            for s in st.optimizer.state.values():
+                for v in s.values():
+                    v.add_(1.0)
+    replicate_state(st, mesh)
+    after = {**_sd(st), **{f"opt{i}": t.clone() for i, t in enumerate(
+        v for s in st.optimizer.state.values() for v in s.values())}}
+    out["replicate"] = {"before": before, "after": after}
+
+    # an epoch and a validation pass over sharded loaders (f64, the
+    # validation forwards without the gate kernel, which takes f32/bf16)
+    ecfg = dict(inputs["cfg"], fuse_gate=False)
+    engine = _engine(ecfg)
+    tr = DeviceDataLoader(inputs["ex"], inputs["ey"], batch_size=4)
+    va = DeviceDataLoader(inputs["vx"], inputs["vy"], batch_size=4,
+                          shuffle=False)
+    st = _state(engine, inputs)
+    st, tt, vt = engine.run_train_and_eval_epoch_async(
+        st, dp.shard_loader(tr), dp.shard_loader(va), inputs["lr"],
+        torch.Generator().manual_seed(3))
+    out["epoch"] = {"sd": _sd(st), "tt": tt, "vt": vt}
+    if rank == 0:
+        ref = _state(engine, inputs)
+        ref, rt, rv = engine.run_train_and_eval_epoch_async(
+            ref, tr, va, inputs["lr"], torch.Generator().manual_seed(3))
+        out["epoch_ref"] = {"sd": _sd(ref), "tt": rt, "vt": rv}
+    return out
+
+
+def scenario_uneven(inputs, rank, world):
+    """A float64 DP epoch whose batches leave ranks uneven and empty,
+    against the single-device epoch on rank 0."""
+    from segtpu_torch.core.dist import create_mesh
+    from segtpu_torch.data.loader import DeviceDataLoader
+    from segtpu_torch.parallel import shard_loader
+
+    engine = _engine(dict(inputs["cfg"], fuse_gate=False))
+    tr = DeviceDataLoader(inputs["ex"], inputs["ey"],
+                          batch_size=inputs["batch"])
+    st = _state(engine, inputs)
+    st, m = engine.run_train_epoch(st, shard_loader(tr, create_mesh(
+        device="cpu")), inputs["lr"], torch.Generator().manual_seed(5))
+    out = {"sd": _sd(st), "metrics": m}
+    if rank == 0:
+        ref = _state(engine, inputs)
+        ref, mr = engine.run_train_epoch(ref, tr, inputs["lr"],
+                                         torch.Generator().manual_seed(5))
+        out["ref"] = {"sd": _sd(ref), "metrics": mr}
+    return out
+
+
+def scenario_profile(inputs, rank, world):
+    """A profiled DP step (float32): the collectives it recorded."""
+    from segtpu_torch.core import hlo_profile
+    from segtpu_torch.core.dist import create_mesh
+    from segtpu_torch.parallel import DataParallel
+
+    dp = DataParallel(create_mesh(device="cpu"))
+    engine = _engine(inputs["cfg"])
+    st = _state(engine, inputs, torch.float32)
+    x, y = dp.shard(inputs["x"].float()), dp.shard(inputs["y"].float())
+    with torch.profiler.profile(record_shapes=True) as prof:
+        engine.train_step(st, x, y)
+    return {"summary": hlo_profile.collective_summary(prof),
+            "collectives": hlo_profile.extract_collectives(prof),
+            "param_bytes": sum(p.numel() * p.element_size()
+                               for p in st.model.parameters()),
+            "n_bn": sum(type(m).__name__ == "BatchNorm2d"
+                        for m in st.model.modules()),
+            "bn_channels": sum(m.num_features for m in st.model.modules()
+                               if type(m).__name__ == "BatchNorm2d")}
+
+
+def _conv_stack(k1, k2):
+    import torch.nn.functional as F
+
+    def apply_fn(x):  # NHWC → NHWC, two 3×3 'same' convs
+        h = torch.tanh(F.conv2d(x.permute(0, 3, 1, 2), k1, padding=1))
+        return F.conv2d(h, k2, padding=1).permute(0, 2, 3, 1)
+    return apply_fn
+
+
+def scenario_spatial(inputs, rank, world):
+    """The row-sharded predictor's contract and the flagship-architecture
+    model through ``spatial_predict``."""
+    from segtpu_torch.core import hlo_profile
+    from segtpu_torch.core.dist import create_mesh
+    from segtpu_torch.models.unet import UNetWithBackbone
+    from segtpu_torch.parallel import (make_spatial_sharded_predictor,
+                                       spatial_predict)
+
+    mesh = create_mesh(device="cpu")
+    out = {}
+    img = inputs["img"]
+    out["identity"] = make_spatial_sharded_predictor(
+        lambda x: x * 2.0, mesh, halo=4)(img).to_local()
+    out["conv"] = make_spatial_sharded_predictor(
+        _conv_stack(inputs["k1"], inputs["k2"]), mesh,
+        halo=4)(inputs["img2"]).to_local()
+    out["halo0"] = make_spatial_sharded_predictor(
+        lambda x: x + 1.0, mesh, halo=0)(torch.ones(16, 8, 1)).to_local()
+    errors = {}
+    for name, call in (
+            ("uneven", lambda: make_spatial_sharded_predictor(
+                lambda x: x, mesh, halo=0)(torch.zeros(31, 8, 1))),
+            ("band", lambda: make_spatial_sharded_predictor(
+                lambda x: x, mesh, halo=32)(torch.zeros(32, 8, 1))),
+            ("negative", lambda: make_spatial_sharded_predictor(
+                lambda x: x, mesh, halo=-1))):
+        try:
+            call()
+            errors[name] = None
+        except ValueError as e:
+            errors[name] = str(e)
+    out["errors"] = errors
+    pred = make_spatial_sharded_predictor(lambda x: x * 2.0, mesh, halo=4)
+    with torch.profiler.profile(record_shapes=True) as prof:
+        pred(img)
+    out["ops"] = sorted({c["opcode"] for c in
+                         hlo_profile.extract_collectives(prof)})
+    model = UNetWithBackbone(backbone="resnet_tiny", use_attention=True,
+                             device="cpu")
+    model.load_state_dict(inputs["state_dict"])
+    out["probs"] = spatial_predict(model, None, inputs["slide"], mesh,
+                                   halo=16)
+    return out
+
+
+def scenario_tiled(inputs, rank, world):
+    """Tile batches sharded over the mesh against the unsharded tiler:
+    blend, and halo with both assembly paths."""
+    from segtpu_torch.core.dist import create_mesh
+    from segtpu_torch.infer.tiled import make_tiled_predictor
+
+    from segtpu_torch.infer.predict import nhwc_forward
+    from segtpu_torch.models.unet import UNetWithBackbone
+
+    img = inputs["img"]
+    fns = {"tanh": lambda x: torch.tanh(x * 1.5 + 0.1)}
+    if "state_dict" in inputs:      # a U-Net's forward
+        model = UNetWithBackbone(backbone="resnet_tiny", use_attention=True,
+                                 device="cpu").eval()
+        model.load_state_dict(inputs["state_dict"])
+        fns["unet"] = lambda x: nhwc_forward(model, x)
+    mesh = create_mesh(device="cpu")
+    out = {}
+    # 16 blend tiles in batches of 8 or (batch_tiles=3) 3, odd; 9 halo
+    # tiles in batches of 5 (scatter assembly) or one of 9 (reshape)
+    for name, fn in fns.items():
+        for mode, bt in (("blend", 8), ("blend", 3), ("halo", 8),
+                         ("halo", 16)):
+            with torch.inference_mode():
+                ref = make_tiled_predictor(fn, tile=32, overlap=8,
+                                           batch_tiles=bt, mode=mode)(img)
+                sharded = make_tiled_predictor(fn, tile=32, overlap=8,
+                                               batch_tiles=bt, mode=mode,
+                                               shard_tiles_axis="data")
+                with mesh:
+                    got = sharded(img)
+            out[(name, mode, bt)] = float((got - ref).abs().max())
+    return out
+
+
+def main(argv) -> int:
+    scenario, world, rank, tmp = argv[0], int(argv[1]), int(argv[2]), argv[3]
+    torch.set_num_threads(1)
+    from segtpu_torch.core.dist import init_process_group
+    init_process_group(f"file://{tmp}/rdzv_{scenario}", world, rank,
+                       device="cpu")
+    inputs = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=False)
+    try:
+        out = globals()[f"scenario_{scenario}"](inputs, rank, world)
+        torch.save(out, os.path.join(tmp, f"{scenario}_{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
