@@ -189,8 +189,33 @@ it, or when any phase fails:
    ``segtpu_torch.core.hlo_profile``: the gradient all-reduce carries the
    parameters' bytes, and the BatchNorm syncs are 2 per BatchNorm. (p3)
    2 folds through ``train_folds_parallel(devices=["cuda:0", "cuda:0"])``
-   equal to the default placement. A ``multidevice {...}`` line;
-14. one JSON line ``{"kernels": [...]}`` (gate and upsample launches
+   equal to the default placement. A ``multidevice {...}`` line.
+   (q2), on the same two ranks after (p2): the flagship (resnet34,
+   attention) on a (data 1 × spatial 2) mesh, B=8 512² placed
+   ``[Shard(0), Shard(2)]``, so each rank holds a band of 256×512: the
+   f32 SGD step against the one-process step (loss, running statistics,
+   the update within 1e-3 of the largest), a control whose bands are
+   zero-padded in place of the exchanged halo rows missing that bar, the
+   bf16 step's time (median of 10), one profiled step's collectives (the
+   halo rows by point-to-point sends and receives, 2 all-gathers, the
+   gradient all-reduce), the engine's bf16 eval step and validation
+   forwards on the bands in f32 (against one process within 1e-5, and
+   the zero-padded control's f32 forward missing that bar) and bf16 (its
+   error reported), 4 gate launches each per rank; a
+   ``spatial_train {...}`` line;
+14. the reparameterisations (q1): the flagship's stem alone at B=16 512²
+   bf16, plain 7×7/s2, s2d (the default) and s2d padded to 8 phase
+   channels, alternated call by call over 20 turns (CUDA events after an
+   L2 flush, medians); the serving forward with the s2d stem and the
+   plain one, alternated (the default, ``stem_s2d=True``, must be the
+   form that is faster alone); the s2d forward with the gate kernel
+   against the f32 model without kernels and with the plain stem (§
+   serving's bars, or 1.25× the bf16 model's own error with the plain
+   stem where that misses them; 4 gate launches); one
+   ``reparam_in_train`` train step of
+   resnet_tiny in f32 and float64 on the card against the CPU's float64
+   step (check (a)'s bars); a ``reparam {...}`` line;
+15. one JSON line ``{"kernels": [...]}`` (gate and upsample launches
    count every path above, the replays of the fused runs' graphs and both
    world-2 ranks included; their sums over the other encoders' shapes
    under ``encoders``), then the card line, then the result line
@@ -917,13 +942,14 @@ def _blob_images(n, size, rng):
     return imgs.clip(0, 255).astype(np.uint8), masks
 
 
-def _step_check(device, size=64) -> dict:
+def _step_check(device, size=64, label="train (a)", **extra) -> dict:
     """Check (a): one train step of resnet_tiny on ``device`` in f32 and
     in float64 against the same step on the CPU in float64, same weights
-    and batch."""
+    and batch; ``extra`` config keys for both (``reparam_in_train``,
+    (q1))."""
     from segtpu_torch.train.engine import TrainState, get_engine
     cfg = {"backbone": "resnet_tiny", "use_attention": True,
-           "loss_fn": "combo"}
+           "loss_fn": "combo", **extra}
     ref_eng, eng = get_engine(cfg, device="cpu"), get_engine(cfg,
                                                              device=device)
     ref = ref_eng.init_state(torch.Generator().manual_seed(SEED), 1e-3, 1e-5)
@@ -958,7 +984,7 @@ def _step_check(device, size=64) -> dict:
         dt = str(dtype).removeprefix("torch.")
         for name, err in (("loss", loss), ("running_var", var),
                           ("grad", grad)):
-            check(err <= tol[name], f"train (a): {dt} step on {device} vs "
+            check(err <= tol[name], f"{label}: {dt} step on {device} vs "
                   f"the CPU's float64 step: {name} err {err:.3g} (tol "
                   f"{tol[name]}" + (f"; worst {worst})" if name == "grad"
                                     else ")"))
@@ -3548,7 +3574,7 @@ def _md_world_one(tmp, device, backbone, size) -> dict:
 
 def _md_rank(rank: int, tmp: str, device: str, size: int, slide: int
              ) -> int:
-    """(p2) and (p4) on rank ``rank`` of 2: gloo, both ranks on
+    """(p2), (p4) and (q2) on rank ``rank`` of 2: gloo, both ranks on
     ``device`` (cuda:0), flagship images of ``size``², a ``slide``² slide.
     Writes its results and checks to ``<tmp>/md_<rank>.json``."""
     from segtpu_torch.core import hlo_profile
@@ -3766,12 +3792,205 @@ def _md_rank(rank: int, tmp: str, device: str, size: int, slide: int
                    f"tile batch (want 4)")
             res[f"tiled_{mode}_err"] = err
         res["gate_launches"] = launches
+        del model
+        torch.cuda.empty_cache()
+        res["bands"] = _md_bands(rank, device, size, record)
     finally:
         res["checks"] = checks
         with open(f"{tmp}/md_{rank}.json", "w") as f:
             json.dump(res, f)
         torch.distributed.destroy_process_group()
     return 0
+
+
+# (q2): the flagship on a (data 1 × spatial 2) mesh, bands of SIZE/2 rows.
+# The f32 SGD step's update (parameters after it minus before) against
+# the one-process step's, within 1e-3 of the largest update. SGD's update
+# is lr·(g + wd·p), so this holds the summed gradients as (p2) does
+# (TOL_MD_GRADS); at LR_BANDS = 1 the update outweighs the parameters, so
+# their f32 rounding (half an ulp of |p| ≤ 1.1, 6e-8) stays far below the
+# bar, which at lr 1e-3 it would not. Bands each padded with zeros in
+# place of their neighbours' rows (each band its own image) must miss it.
+# The loss and the running statistics as (p2)'s.
+TOL_BANDS_UPDATE, LR_BANDS = 1e-3, 1.0
+# (q2): the f32 validation forward on the bands against one process, in
+# probabilities. The two differ only in the order of sums (3.6e-7 on an
+# H100), so 1e-5 holds the rows at the band cuts, where a fault in the
+# eval path (band-local pooling, a missing halo) shows; the zero-padded
+# control's forward must miss it. bf16 is reported only: its rounding
+# alone reaches 2^-8.
+TOL_BANDS_PROBS = 1e-5
+
+
+def _zero_padded(self, x, kernel, stride, padding, dilation=1, fill=0.0):
+    """Negative control for ``Bands.pad_rows``: the layer's own padding
+    at both cuts of the band, no rows from the neighbours."""
+    bottom = max(0, dilation * (kernel - 1) + 1 - stride - padding)
+    edge = lambda k: x.new_full((*x.shape[:2], k, x.shape[3]), fill)
+    return torch.cat([edge(padding), x, edge(bottom)], dim=2)
+
+
+def _update_err(got: dict, want: dict, init: dict) -> float:
+    """Largest error of a step's parameter update relative to the largest
+    update of ``want``."""
+    keys = [k for k in want if want[k].is_floating_point()
+            and "running" not in k]
+    dmax = max(float((want[k] - init[k]).abs().max()) for k in keys)
+    return max(float((got[k] - want[k]).abs().max()) for k in keys) / dmax
+
+
+def _md_bands(rank: int, device: str, size: int, record) -> dict:
+    """(q2) on rank ``rank`` of 2: the flagship (resnet34, attention) on a
+    (data 1 × spatial 2) mesh, each rank a band of ``size // 2`` rows of
+    B=8 images: the f32 SGD step against one process (rank 0) and its
+    zero-padded control, the bf16 step's time, one profiled step's
+    collectives, the engine's eval step and a validation forward on the
+    bands (4 gate launches each) against one process."""
+    from unittest import mock
+    from segtpu_torch.core import hlo_profile
+    from segtpu_torch.core.dist import create_mesh
+    from segtpu_torch.kernels import launch_counts, reset_launch_counts
+    from segtpu_torch.parallel import DataParallel
+    from segtpu_torch.parallel.data_parallel import local_batch, synced
+    from segtpu_torch.parallel.spatial import Bands
+    from segtpu_torch.train.engine import get_engine
+    mesh = create_mesh(axis_sizes=(1, 2), axis_names=("data", "spatial"),
+                       device=device)
+    dp = DataParallel(mesh)
+    place = lambda t: dp.shard(t, spatial_axis="spatial")
+    b = TRAIN_CONFIG["batch_size"]
+    x, y = _md_batch(b, size, SEED + 50, device)
+    xb, yb = place(x), place(y)
+    res = {"band": list(xb.to_local().shape)}
+    record(tuple(xb.to_local().shape) == (b, 1, size // 2, size)
+           and xb.to_local().is_cuda,
+           f"(q2) this rank's band of the batch: "
+           f"{tuple(xb.to_local().shape)} on cuda")
+
+    e32 = get_engine({"backbone": "resnet34", "use_attention": True,
+                      "loss_fn": "combo", "optimizer": "sgd"}, device=device)
+    fresh = lambda: e32.init_state(torch.Generator().manual_seed(SEED),
+                                   LR_BANDS, 1e-5)
+    init = {k: v.clone() for k, v in fresh().model.state_dict().items()}
+
+    def stepped(xx, yy):
+        st, m = e32.train_step(fresh(), xx, yy)
+        return float(m["loss"]), st.model.state_dict()
+
+    got = {"bands": stepped(xb, yb)}
+    with mock.patch.object(Bands, "pad_rows", _zero_padded):
+        got["zero_padded"] = stepped(xb, yb)
+    if rank == 0:
+        lr_, sr = stepped(x, y)
+        for name, (lg, sg) in got.items():
+            loss_err = abs(lg - lr_) / abs(lr_)
+            _, serr = _md_state_err(sg, sr)
+            uerr = _update_err(sg, sr, init)
+            res[f"f32_{name}"] = dict(loss_rel_err=loss_err,
+                                      stats_err=serr, update_err=uerr)
+        ok, zp = res["f32_bands"], res["f32_zero_padded"]
+        record(ok["loss_rel_err"] <= TOL_MD_LOSS
+               and ok["stats_err"] <= TOL_MD_STATS
+               and ok["update_err"] <= TOL_BANDS_UPDATE
+               < zp["update_err"],
+               f"(q2) f32 SGD step (lr {LR_BANDS}) on 2 bands of "
+               f"{size // 2}×{size} (B={b}) vs the one-process step: loss "
+               f"{ok['loss_rel_err']:.3g} "
+               f"(tol {TOL_MD_LOSS}), running statistics "
+               f"{ok['stats_err']:.3g} of their scale (tol {TOL_MD_STATS}), "
+               f"update {ok['update_err']:.3g} of the largest (tol "
+               f"{TOL_BANDS_UPDATE}); zero-padded bands: update "
+               f"{zp['update_err']:.3g}, statistics {zp['stats_err']:.3g}, "
+               f"loss {zp['loss_rel_err']:.3g}")
+    del got, init
+    torch.cuda.empty_cache()
+
+    # the bf16 step's time and one profiled step's collectives
+    eng = get_engine(dict(MD_FLAGSHIP, backbone="resnet34"), device=device)
+    st = eng.init_state(torch.Generator().manual_seed(SEED), 1e-3, 1e-5)
+    step = lambda: eng.train_step(st, xb, yb)
+    step()
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(MD_WORLD2_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step()
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+    res["step_ms"] = statistics.median(ms)
+    res["step_ms_all"] = ms
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        step()
+        torch.cuda.synchronize()
+    coll = hlo_profile.extract_collectives(prof, world=2)
+    by = {}
+    for c in coll:
+        n, nb = by.get(c["opcode"], (0, 0))
+        by[c["opcode"]] = (n + 1, nb + c["payload_bytes"])
+    params = sum(p.numel() * p.element_size() for p in st.model.parameters())
+    ar = max((c["payload_bytes"] for c in coll
+              if c["opcode"] == "all-reduce"), default=None)
+    record(by.get("send", (0,))[0] > 0
+           and by.get("send", (0,))[0] == by.get("recv", (0,))[0]
+           and by.get("all-gather", (0,))[0] == 2 and ar == params,
+           f"(q2) profiled step on the bands: halo rows by point-to-point "
+           f"sends and receives ({by.get('send')}, {by.get('recv')}: count, "
+           f"bytes), 2 all-gathers (logits and masks; "
+           f"{by.get('all-gather')}), the gradient all-reduce of the "
+           f"{params} parameter bytes ({ar})")
+    res["collectives"] = {k: {"count": n, "payload_bytes": nb}
+                          for k, (n, nb) in by.items()}
+    res["profile"] = hlo_profile.profile_trace(prof)
+
+    # the engine's (bf16) eval step on the bands, and validation forwards
+    # on the bands in f32 (held) and bf16 (reported) against one process
+    model = st.model
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    vec = eng._eval_step_vec(st, xb, yb)
+    gates = [launch_counts()["attention_gate"]]
+    xl, _, sync = local_batch(xb, yb)
+    probs = {}
+    for name, auto in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        reset_launch_counts()
+        with torch.inference_mode(), torch.autocast(
+                "cuda", dtype=torch.bfloat16, enabled=auto != torch.float32), \
+                synced(model, sync):
+            probs[name] = sync.gather(torch.sigmoid(model.eval()(xl).float()))
+        gates.append(launch_counts()["attention_gate"])
+    res["gate_launches"] = sum(gates)
+    record(gates == [4, 4, 4] and bool(torch.isfinite(vec).all()),
+           f"(q2) the engine's eval step (bf16) and validation forwards in "
+           f"f32 and bf16 on this rank's band: {gates} gate launches (want "
+           f"4 each), finite metrics")
+    with mock.patch.object(Bands, "pad_rows", _zero_padded), \
+            torch.inference_mode(), synced(model, sync):
+        probs["f32_zero_padded"] = sync.gather(
+            torch.sigmoid(model.eval()(xl).float()))
+    if rank == 0:
+        want = {}
+        for name, auto in (("f32", torch.float32),
+                           ("bf16", torch.bfloat16)):
+            with torch.inference_mode(), torch.autocast(
+                    "cuda", dtype=torch.bfloat16,
+                    enabled=auto != torch.float32):
+                want[name] = torch.sigmoid(model(x).float())
+        want["f32_zero_padded"] = want["f32"]
+        for name, p in probs.items():
+            res[f"probs_err_{name}"] = float((p - want[name]).abs().max())
+        err, zp = res["probs_err_f32"], res["probs_err_f32_zero_padded"]
+        record(probs["f32"].shape == want["f32"].shape
+               and err <= TOL_BANDS_PROBS < zp,
+               f"(q2) f32 validation forward on 2 bands vs one process: "
+               f"probs max_abs_err {err:.3g} (tol {TOL_BANDS_PROBS}); "
+               f"zero-padded bands {zp:.3g}; bf16 "
+               f"{res['probs_err_bf16']:.3g}")
+    return res
 
 
 def _md_world_two(tmp: str, device, size: int, slide: int) -> dict:
@@ -3872,6 +4091,134 @@ def phase_multidevice(device="cuda", backbone="resnet34", size=SIZE,
     res["launches"]["attention_gate"] += world2
     res["gate_launches_world2"] = world2
     print("multidevice " + json.dumps(res), flush=True)
+    bands = {r: ranks[r].get("bands", {}) for r in ranks}
+    res["spatial_train"] = dict(bands.get(0, {}), gate_launches_per_rank=[
+        bands[r].get("gate_launches") for r in sorted(bands)])
+    res["launches"]["attention_gate"] += sum(
+        v.get("gate_launches", 0) for v in bands.values())
+    print("spatial_train " + json.dumps(res["spatial_train"]), flush=True)
+    return res
+
+
+# ------------------------------------------- (q1) the s2d stem, reparam_in_train
+# The stem alone, each form timed by CUDA events around single calls after
+# an L2 flush, the forms alternated call by call over this many turns.
+STEM_TURNS = 20
+
+
+def _stem_s2d_cin8(stem, x):
+    """The s2d stem with its phases zero-padded to 8 channels (the JAX
+    package's form, its TPU's best), for the stem's timing only."""
+    import torch.nn.functional as F
+    from segtpu_torch.models.backbones import stem_s2d_weight
+    xs = F.pixel_unshuffle(x, 2).contiguous(memory_format=torch.channels_last)
+    xs = torch.cat([xs, torch.zeros_like(xs)], dim=1)
+    w4 = stem_s2d_weight(stem.weight)
+    return F.conv2d(F.pad(xs, (2, 1, 2, 1)),
+                    torch.cat([w4, torch.zeros_like(w4)], dim=1))
+
+
+def phase_reparam(device="cuda", batch=BATCH, size=SIZE) -> dict:
+    """(q1): the flagship's stem alone in its three forms (plain 7×7/s2,
+    s2d over 4 phase channels, s2d padded to 8) and the B=16 serving
+    forward (gate kernel on) with the s2d stem and the plain one,
+    alternated; the forward with the s2d stem held to the f32 model
+    without kernels and with the plain stem (§2's bars), 4 gate launches;
+    one f32 ``reparam_in_train`` step of resnet_tiny against the CPU's
+    float64 step (train (a)'s bars). A ``reparam {...}`` line."""
+    from segtpu_torch.kernels import launch_counts, reset_launch_counts
+    from segtpu_torch.models.unet import UNetWithBackbone
+    ref32 = _randomized_flagship(True, device, size=size)
+    model = copy.deepcopy(ref32).to(torch.bfloat16)
+    stem = model.input_conv
+    x = torch.rand(batch, 1, size, size, device=device,
+                   generator=torch.Generator(device).manual_seed(SEED + 60),
+                   dtype=torch.bfloat16).contiguous(
+                       memory_format=torch.channels_last)
+
+    def form(s2d):
+        def call():
+            stem.s2d = s2d
+            return stem(x)
+        return call
+    forms = {"plain": form(False), "s2d": form(True),
+             "s2d_cin8": lambda: _stem_s2d_cin8(stem, x)}
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=device)
+    spans = {k: [] for k in forms}
+    with torch.inference_mode():
+        ref = forms["plain"]().float()
+        errs = {k: float((f().float() - ref).abs().max())
+                for k, f in forms.items()}
+        for f in forms.values():
+            f()
+        torch.cuda.synchronize()
+        for _ in range(STEM_TURNS):
+            for k, f in forms.items():
+                flush.zero_()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                f()
+                end.record()
+                spans[k].append((start, end))
+        torch.cuda.synchronize()
+    stem.s2d = True
+    ms = {k: [s.elapsed_time(e) for s, e in v] for k, v in spans.items()}
+    stem_ms = {k: statistics.median(v) for k, v in ms.items()}
+    scale = float(ref.abs().max())
+    check(max(errs.values()) <= TOL_BF16 * scale,
+          f"(q1) the stem's s2d forms vs its plain form, bf16 at B={batch} "
+          f"{size}²: max_abs_err {errs} (tol {TOL_BF16 * scale:.3g})")
+
+    fwd_s2d, fwd_plain, fwd_s2d_all, fwd_plain_all = _forward_ms(
+        model, x, lambda m, on: setattr(m, "stem_s2d", on))
+    rng = np.random.default_rng(SEED + 61)
+    images = rng.uniform(0, 1, (batch, size, size)).astype(np.float32)
+    _use_kernels(ref32, False)
+    ref32.stem_s2d = False
+    lg_ref = _logits(ref32, images, device)
+    lscale = float(lg_ref.abs().max())
+    # the bf16 model with the plain stem: bf16's own error
+    model.stem_s2d = False
+    lg = _logits(model, images, device)
+    lerr_plain = float((lg - lg_ref).abs().max())
+    perr_plain = float((torch.sigmoid(lg) - torch.sigmoid(lg_ref)).abs()
+                       .max())
+    model.stem_s2d = True
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    lg = _logits(model, images, device)
+    gates = launch_counts()["attention_gate"]
+    lerr = float((lg - lg_ref).abs().max())
+    perr = float((torch.sigmoid(lg) - torch.sigmoid(lg_ref)).abs().max())
+    tol_p = max(TOL_PROBS, TOL_KERNEL_OVER_BF16 * perr_plain)
+    tol_l = max(TOL_LOGITS_REL * lscale, TOL_KERNEL_OVER_BF16 * lerr_plain)
+    check(gates == 4 and perr <= tol_p and lerr <= tol_l,
+          f"(q1) bf16 flagship forward with the s2d stem and the gate "
+          f"kernel ({gates} launches, want 4) vs the f32 model without "
+          f"kernels and with the plain stem: probs {perr:.3g} (tol "
+          f"{tol_p:.3g}), logits {lerr:.3g} (tol {tol_l:.3g}); the bf16 "
+          f"model with the plain stem: {perr_plain:.3g}, {lerr_plain:.3g}")
+    # the form a freshly built model's stem takes
+    default = UNetWithBackbone(backbone="resnet_tiny", device="cpu").stem_s2d
+    check(default == (stem_ms["s2d"] < stem_ms["plain"]),
+          f"(q1) the stem's default form (stem_s2d={default}) is the one "
+          f"that is faster alone: s2d {stem_ms['s2d']:.4f} ms, plain "
+          f"{stem_ms['plain']:.4f} ms (medians of {STEM_TURNS}), s2d "
+          f"padded to 8 channels {stem_ms['s2d_cin8']:.4f} ms")
+    res = dict(batch=batch, size=size, stem_ms=stem_ms, stem_ms_all=ms,
+               stem_max_abs_err=errs, forward_ms_s2d=fwd_s2d,
+               forward_ms_plain=fwd_plain, forward_ms_s2d_turns=fwd_s2d_all,
+               forward_ms_plain_turns=fwd_plain_all,
+               stem_s2d_default=default,
+               s2d_faster_alone=stem_ms["s2d"] < stem_ms["plain"],
+               probs_max_abs_err=perr, logits_max_abs_err=lerr,
+               probs_max_abs_err_plain_stem=perr_plain,
+               logits_max_abs_err_plain_stem=lerr_plain,
+               gate_launches=gates)
+    res.update(_step_check(device, label="(q1) reparam_in_train",
+                           reparam_in_train=True))
+    print("reparam " + json.dumps(res), flush=True)
     return res
 
 
@@ -3910,6 +4257,7 @@ def main() -> int:
     inference = phase_inference()
     fused = phase_fused()
     multi = phase_multidevice()
+    reparam = phase_reparam()
     # each kernel's launches on its own main paths: the serving models
     # and the training runs that run it, or the bench entry points for the
     # conv and the pair
@@ -3922,7 +4270,8 @@ def main() -> int:
                 + selection["launches"]["attention_gate"]
                 + inference["launches"]["attention_gate"]
                 + fused["launches"]["attention_gate"]
-                + multi["launches"]["attention_gate"],
+                + multi["launches"]["attention_gate"]
+                + reparam["gate_launches"],
                 "upsample2x_concat": served["upsample2x_concat"]["launches"]
                 + trained["upsample_launches_no_attention"]
                 + encoders["launches"]["upsample2x_concat"]

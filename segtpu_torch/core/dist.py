@@ -10,7 +10,8 @@ explicit ``backend``: never one as a fallback for another) and
 ``with mesh:`` where the JAX package's tests enter a ``Mesh``.
 
 The collectives the data-parallel step, the synchronised BatchNorm and
-the spatial and tiled predictors share are here too. On a gloo group a
+the spatial and tiled predictors share are here too, with the
+differentiable halo exchange of row-sharded training. On a gloo group a
 CUDA tensor goes through host memory explicitly (a copy to the host, the
 collective, a copy back), which is how the two ranks of one card talk
 when NCCL refuses them ("Duplicate GPU detected"); NCCL takes device
@@ -121,14 +122,16 @@ def _via_host(t: torch.Tensor, group) -> bool:
     return t.device.type != "cpu" and dist.get_backend(group) == "gloo"
 
 
-def all_reduce_(t: torch.Tensor, group=None) -> torch.Tensor:
-    """In-place sum of ``t`` over ``group``."""
+def all_reduce_(t: torch.Tensor, group=None,
+                op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """In place: ``t`` reduced by ``op`` (a sum unless told) over
+    ``group``."""
     if _via_host(t, group):
         host = t.cpu()
-        dist.all_reduce(host, group=group)
+        dist.all_reduce(host, op=op, group=group)
         t.copy_(host)
     else:
-        dist.all_reduce(t, group=group)
+        dist.all_reduce(t, op=op, group=group)
     return t
 
 
@@ -160,6 +163,85 @@ def all_gather_rows(t: torch.Tensor, n: int, group=None) -> torch.Tensor:
     return torch.cat(parts)[:n].to(t.device)
 
 
+def exchange_rows(up: torch.Tensor, down: torch.Tensor, group):
+    """Neighbour exchange over the ranks of ``group``, in rank order: each
+    rank sends ``up`` to the rank above (rank − 1) and ``down`` to the
+    rank below, by point-to-point sends and receives (never a gather).
+    Returns (the rank above's ``down``, the rank below's ``up``), each
+    None where there is no such rank; every rank's ``up`` and ``down``
+    have the same shapes as its neighbours'. A direction whose payload is
+    empty moves nothing."""
+    n, r = group.size(), group.rank()
+    host = _via_host(up, group)
+    stage = (lambda t: t.contiguous().cpu()) if host \
+        else (lambda t: t.contiguous())
+    up, down = stage(up), stage(down)
+    from_above = torch.empty_like(down) if r > 0 else None
+    from_below = torch.empty_like(up) if r < n - 1 else None
+    ops = []
+    if r > 0:
+        peer = dist.get_global_rank(group, r - 1)
+        if up.numel():
+            ops.append(dist.P2POp(dist.isend, up, peer, group))
+        if down.numel():
+            ops.append(dist.P2POp(dist.irecv, from_above, peer, group))
+    if r < n - 1:
+        peer = dist.get_global_rank(group, r + 1)
+        if down.numel():
+            ops.append(dist.P2POp(dist.isend, down, peer, group))
+        if up.numel():
+            ops.append(dist.P2POp(dist.irecv, from_below, peer, group))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return from_above, from_below
+
+
+class _HaloRows(torch.autograd.Function):
+    """``halo_rows``; the backward is its adjoint: the gradients of the
+    received rows go back to the ranks that own them and are added into
+    their edge rows, and those of the fill rows are dropped."""
+
+    @staticmethod
+    def forward(ctx, x, top, bottom, fill, group):
+        ctx.top, ctx.bottom, ctx.group = top, bottom, group
+        h = x.shape[2]
+        from_above, from_below = exchange_rows(
+            x[:, :, :bottom], x[:, :, h - top:], group)
+        edge = lambda k: x.new_full((*x.shape[:2], k, x.shape[3]), fill)
+        top_rows = edge(top) if from_above is None \
+            else from_above.to(x.device)
+        bottom_rows = edge(bottom) if from_below is None \
+            else from_below.to(x.device)
+        return torch.cat([top_rows, x, bottom_rows], dim=2)
+
+    @staticmethod
+    def backward(ctx, grad):
+        top, bottom = ctx.top, ctx.bottom
+        h = grad.shape[2] - top - bottom
+        gx = grad[:, :, top:top + h].clone()
+        from_above, from_below = exchange_rows(
+            grad[:, :, :top], grad[:, :, top + h:], ctx.group)
+        if from_above is not None and bottom:
+            gx[:, :, :bottom] += from_above.to(gx.device)
+        if from_below is not None and top:
+            gx[:, :, h - top:] += from_below.to(gx.device)
+        return gx, None, None, None, None
+
+
+def halo_rows(x: torch.Tensor, top: int, bottom: int, fill: float,
+              group) -> torch.Tensor:
+    """This rank's band ``x`` (N, C, h, W) of images cut into row bands
+    over ``group`` (rank order, top to bottom), with ``top`` rows of the
+    band above on top and ``bottom`` rows of the band below beneath;
+    at the images' own top and bottom edges, rows of ``fill`` (a layer's
+    own padding). Differentiable (``_HaloRows``)."""
+    if top > x.shape[2] or bottom > x.shape[2]:
+        raise ValueError(f"halo of {top} + {bottom} rows exceeds the band "
+                         f"height {x.shape[2]}")
+    return _HaloRows.apply(x, int(top), int(bottom), float(fill), group)
+
+
 class _AllReduceSum(torch.autograd.Function):
     """Sum over the group; the backward sums the gradients over it."""
 
@@ -188,6 +270,37 @@ class _GatherRows(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return grad[ctx.rows], None, None
+
+
+class _AmaxOverRanks(torch.autograd.Function):
+    """``amax_over_ranks``. The backward sums the output's gradient over
+    the ranks (each saw only its own band's share of its use) and splits
+    it evenly over the maximum's occurrences in all the bands, as
+    ``amax`` splits it over one tensor's."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        m = all_reduce_(x.amax((2, 3), keepdim=True), group,
+                        op=dist.ReduceOp.MAX)
+        hit = x == m
+        ties = all_reduce_(hit.sum((2, 3), keepdim=True,
+                                   dtype=torch.float32), group)
+        ctx.group = group
+        ctx.save_for_backward(hit, ties)
+        return m
+
+    @staticmethod
+    def backward(ctx, grad):
+        hit, ties = ctx.saved_tensors
+        g = all_reduce_(grad.clone(), ctx.group)
+        return (g * hit / ties).to(grad.dtype), None
+
+
+def amax_over_ranks(x: torch.Tensor, group) -> torch.Tensor:
+    """The maximum over dims (2, 3) of ``x`` (N, C, h, W) and its
+    counterparts on the ranks of ``group`` (N, C, 1, 1), on every rank;
+    differentiable."""
+    return _AmaxOverRanks.apply(x, group)
 
 
 def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:

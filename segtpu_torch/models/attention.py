@@ -129,7 +129,10 @@ def invalidate_folds(model: nn.Module) -> nn.Module:
 
 
 class ChannelAttention(nn.Module):
-    """SE-style channel attention with avg+max pooled descriptors."""
+    """SE-style channel attention with avg+max pooled descriptors. On row
+    bands (``bands`` set) both descriptors pool the whole image: the
+    bands' sums over the global H·W, and their global maximum."""
+    bands = None
 
     def __init__(self, channels: int, reduction_ratio: int = 16, *,
                  device="cuda", dtype=torch.float32):
@@ -141,6 +144,9 @@ class ChannelAttention(nn.Module):
             nn.Conv2d(hidden, channels, 1, bias=False, **kw))
 
     def forward(self, x):
-        avg = x.mean(dim=(2, 3), keepdim=True)
-        mx = x.amax(dim=(2, 3), keepdim=True)
+        if self.bands is None:
+            avg = x.mean(dim=(2, 3), keepdim=True)
+            mx = x.amax(dim=(2, 3), keepdim=True)
+        else:
+            avg, mx = self.bands.mean(x), self.bands.amax(x)
         return x * torch.sigmoid(self.fc(avg) + self.fc(mx))

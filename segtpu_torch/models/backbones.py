@@ -3,8 +3,10 @@
 Port of ``segtpu/models/backbones.py``: ``resnet34`` (BasicBlock),
 ``resnet50`` (Bottleneck), ``densenet121`` and the test-scale
 ``resnet_tiny`` (one BasicBlock per stage, resnet34's channel plan). The
-grayscale stem is the plain 7×7/s2 conv; the JAX package's ``stem_s2d``
-inference rewrite is not ported (ROADMAP A2).
+ResNets' grayscale stem (``GrayStem``) runs its 7×7/s2 conv as the JAX
+package's ``stem_s2d`` does: at inference, or in training too with
+``reparam_in_train``, as a 4×4/s1 conv over the 2×2 space-to-depth input
+(an exact reparameterisation of the same weight).
 
 Module names follow the reference/torchvision naming (``input_conv``,
 ``bn1``, ``enc1.0.conv1``, ``enc1.0.conv3``, ``enc2.0.downsample.0``;
@@ -14,6 +16,14 @@ Module names follow the reference/torchvision naming (``input_conv``,
 
 Every BatchNorm is ``BatchNorm2d`` below: ``nn.BatchNorm2d`` with flax's
 train-mode update of the running variance.
+
+Every layer whose window spans more than one row (the convs wider than
+1×1 as ``Conv2d``, the stems, the max-pool as ``MaxPool``) can run on a
+row band of its input: with ``bands`` set (a
+``segtpu_torch.parallel.spatial.Bands``, by ``on_bands``), it takes the
+rows its window needs from the neighbouring bands and its own padding
+at the images' edges, so that the bands' outputs are the rows of the
+whole image's output.
 
 Returns the 5 skip features (x1..x5) at strides /2, /4, /8, /16, /32.
 """
@@ -140,13 +150,14 @@ class BatchNorm2d(nn.BatchNorm2d):
         return out.to(x.dtype)
 
     def _forward_synced(self, x):
-        """The train-mode forward over the global batch: ``sync.rows``
-        rows of the same height and width, ``sync.all_reduce`` the
-        differentiable sum over the ranks (one collective of 2·C values,
-        and one of their gradients in backward)."""
+        """The train-mode forward over the global batch: ``sync.count(x)``
+        values a channel (its rows, each of this level's global height
+        and width), ``sync.all_reduce`` the differentiable sum over the
+        ranks (one collective of 2·C values per mesh axis, and one of
+        their gradients in backward)."""
         xf = x if x.dtype in (torch.float32, torch.float64) else x.float()
         c = x.shape[1]
-        n = self.sync.rows * x.shape[2] * x.shape[3]
+        n = self.sync.count(x)
         sums = self.sync.all_reduce(torch.cat([
             xf.sum((0, 2, 3)), xf.square().sum((0, 2, 3))]))
         mean = sums[:c] / n
@@ -201,9 +212,10 @@ def frozen_running_stats(model: nn.Module):
 @contextlib.contextmanager
 def synced_batch_stats(model: nn.Module, sync):
     """Within it, train-mode forwards of ``model``'s BatchNorms take the
-    global batch's statistics through ``sync`` (an object with ``rows``,
-    the global batch's rows, and ``all_reduce``, a differentiable sum over
-    the ranks); with ``sync`` None, nothing changes. Hold it over the
+    global batch's statistics through ``sync`` (an object with ``count``,
+    the global batch's values per channel of a local input, and
+    ``all_reduce``, a differentiable sum over the ranks); with ``sync``
+    None, nothing changes. Hold it over the
     backward too where a checkpointed forward is re-run there."""
     bns = [m for m in model.modules() if isinstance(m, BatchNorm2d)] \
         if sync is not None else []
@@ -216,9 +228,75 @@ def synced_batch_stats(model: nn.Module, sync):
             bn.sync = None
 
 
-def _maxpool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
-    """torch MaxPool2d(3, stride 2, padding 1)."""
-    return F.max_pool2d(x, 3, stride=2, padding=1)
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` (same ``state_dict``) that runs on row bands: with
+    ``bands`` set, a kernel taller than one row takes its halo rows from
+    the neighbouring bands (zeros at the images' edges, its own padding)
+    and pads only the columns itself."""
+    bands = None
+
+    def forward(self, x):
+        if self.bands is None or self.kernel_size[0] == 1:
+            return super().forward(x)
+        x = self.bands.pad_rows(x, self.kernel_size[0], self.stride[0],
+                                self.padding[0], self.dilation[0])
+        return F.conv2d(x, self.weight, self.bias, self.stride,
+                        (0, self.padding[1]), self.dilation, self.groups)
+
+
+def stem_s2d_weight(w7: torch.Tensor) -> torch.Tensor:
+    """The 4×4 kernel (Cout, 4, 4, 4) over the space-to-depth input of a
+    7×7/s2 kernel ``w7`` (Cout, 1, 7, 7), torch's OIHW. The JAX package's
+    constant map (``_stem_s2d_map``) sends tap (u, v) to (a, b, p) with
+    2a + du = u + 1 (and the same for v), so w4 is
+    ``w7`` padded by one zero row and column on top and left and cut into
+    its 2×2 phases: ``pixel_unshuffle`` of the padded kernel, in its own
+    phase order p = 2·du + dv. A copy with zeros, exact in any dtype;
+    autograd carries the stem's gradient back to ``w7``."""
+    return F.pixel_unshuffle(F.pad(w7, (1, 0, 1, 0)), 2)
+
+
+class GrayStem(Conv2d):
+    """The ResNets' grayscale stem, 7×7/s2, padding 3, no bias (key
+    ``input_conv.weight``). With ``s2d`` it runs, in eval mode or (with
+    ``reparam_in_train``) in train mode too, on an input of one channel
+    and even height and width, as the 4×4/s1 conv of ``stem_s2d_weight``
+    over ``pixel_unshuffle(x, 2)`` with padding (2, 1) on each axis: the
+    same function up to the order of the sums (the JAX package's
+    ``stem_s2d``; the JAX package pads the phases to 8 channels, its TPU's
+    best, which is not done here). Otherwise, the plain conv."""
+
+    def __init__(self, *, s2d: bool = True, reparam_in_train: bool = False,
+                 device="cuda", dtype=torch.float32):
+        super().__init__(1, 64, 7, 2, 3, bias=False,
+                         device=resolve_device(device), dtype=dtype)
+        self.s2d, self.reparam_in_train = s2d, reparam_in_train
+
+    def forward(self, x):
+        if not (self.s2d and (not self.training or self.reparam_in_train)
+                and x.shape[1] == 1 and x.shape[2] % 2 == 0
+                and x.shape[3] % 2 == 0):
+            return super().forward(x)
+        xs = F.pixel_unshuffle(x, 2).contiguous(
+            memory_format=torch.channels_last)
+        if self.bands is None:
+            xs = F.pad(xs, (2, 1, 2, 1))
+        else:
+            # 2 rows above and 1 below, at half resolution
+            xs = F.pad(self.bands.pad_rows(xs, 4, 1, 2), (2, 1))
+        return F.conv2d(xs, stem_s2d_weight(self.weight))
+
+
+class MaxPool(nn.Module):
+    """torch ``MaxPool2d(3, stride 2, padding 1)``; on row bands its
+    halo rows are −inf at the images' edges, as its padding is."""
+    bands = None
+
+    def forward(self, x):
+        if self.bands is None:
+            return F.max_pool2d(x, 3, stride=2, padding=1)
+        x = self.bands.pad_rows(x, 3, 2, 1, fill=float("-inf"))
+        return F.max_pool2d(x, 3, stride=2, padding=(0, 1))
 
 
 class BasicBlock(nn.Module):
@@ -228,9 +306,9 @@ class BasicBlock(nn.Module):
                  device="cuda", dtype=torch.float32):
         super().__init__()
         kw = dict(device=resolve_device(device), dtype=dtype)
-        self.conv1 = nn.Conv2d(cin, cout, 3, stride, 1, bias=False, **kw)
+        self.conv1 = Conv2d(cin, cout, 3, stride, 1, bias=False, **kw)
         self.bn1 = BatchNorm2d(cout, **kw)
-        self.conv2 = nn.Conv2d(cout, cout, 3, 1, 1, bias=False, **kw)
+        self.conv2 = Conv2d(cout, cout, 3, 1, 1, bias=False, **kw)
         self.bn2 = BatchNorm2d(cout, **kw)
         self.downsample = None
         if stride != 1 or cin != cout:
@@ -258,7 +336,7 @@ class Bottleneck(nn.Module):
         cout = width * self.EXPANSION
         self.conv1 = nn.Conv2d(cin, width, 1, bias=False, **kw)
         self.bn1 = BatchNorm2d(width, **kw)
-        self.conv2 = nn.Conv2d(width, width, 3, stride, 1, bias=False, **kw)
+        self.conv2 = Conv2d(width, width, 3, stride, 1, bias=False, **kw)
         self.bn2 = BatchNorm2d(width, **kw)
         self.conv3 = nn.Conv2d(width, cout, 1, bias=False, **kw)
         self.bn3 = BatchNorm2d(cout, **kw)
@@ -277,12 +355,12 @@ class Bottleneck(nn.Module):
 
 
 def resnet_features(m: nn.Module, x: torch.Tensor) -> List[torch.Tensor]:
-    """x1..x5 of a module holding ``input_conv``, ``bn1`` and
+    """x1..x5 of a module holding ``input_conv``, ``bn1``, ``maxpool`` and
     ``enc1``..``enc4`` (a ``ResNetEncoder``, or the U-Net, which holds the
     same modules at its top level to keep the reference's key names)."""
     x1 = F.relu(m.bn1(m.input_conv(x)))
     feats = [x1]
-    y = _maxpool_3x3_s2(x1)
+    y = m.maxpool(x1)
     for i in range(1, 5):
         y = getattr(m, f"enc{i}")(y)
         feats.append(y)
@@ -290,17 +368,21 @@ def resnet_features(m: nn.Module, x: torch.Tensor) -> List[torch.Tensor]:
 
 
 class ResNetEncoder(nn.Module):
-    """ResNet encoder with grayscale stem; ``forward`` yields x1..x5."""
+    """ResNet encoder with grayscale stem (``GrayStem``: its ``s2d`` is
+    the JAX package's ``stem_s2d``, on by default; ``reparam_in_train`` as
+    in the JAX package); ``forward`` yields x1..x5."""
 
     def __init__(self, block_counts, bottleneck: bool = False, *,
-                 device="cuda", dtype=torch.float32):
+                 reparam_in_train: bool = False, device="cuda",
+                 dtype=torch.float32):
         super().__init__()
         dev = resolve_device(device)
         kw = dict(device=dev, dtype=dtype)
         block = Bottleneck if bottleneck else BasicBlock
         expansion = Bottleneck.EXPANSION if bottleneck else 1
-        self.input_conv = nn.Conv2d(1, 64, 7, 2, 3, bias=False, **kw)
+        self.input_conv = GrayStem(reparam_in_train=reparam_in_train, **kw)
         self.bn1 = BatchNorm2d(64, **kw)
+        self.maxpool = MaxPool()
         cin = 64
         for li, (width, n) in enumerate(zip((64, 128, 256, 512),
                                             block_counts)):
@@ -326,8 +408,8 @@ class DenseLayer(nn.Module):
         self.norm1 = BatchNorm2d(cin, **kw)
         self.conv1 = nn.Conv2d(cin, 4 * growth, 1, bias=False, **kw)
         self.norm2 = BatchNorm2d(4 * growth, **kw)
-        self.conv2 = nn.Conv2d(4 * growth, growth, 3, padding=1, bias=False,
-                               **kw)
+        self.conv2 = Conv2d(4 * growth, growth, 3, padding=1, bias=False,
+                            **kw)
 
     def forward(self, x):
         y = self.conv1(F.relu(self.norm1(x)))
@@ -351,13 +433,14 @@ class Transition(nn.Module):
 
 class _DenseFeatures(nn.Module):
     """The reference's ``features`` of densenet121 that its encoder runs:
-    ``norm0``, ``denseblock1..4`` and ``transition1..3`` (the 3-channel
-    ``conv0`` and the final ``norm5`` are unused, so absent)."""
+    ``norm0``, ``pool0``, ``denseblock1..4`` and ``transition1..3`` (the
+    3-channel ``conv0`` and the final ``norm5`` are unused, so absent)."""
 
     def __init__(self, *, device="cuda", dtype=torch.float32):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.norm0 = BatchNorm2d(64, **kw)
+        self.pool0 = MaxPool()
         ch = 64
         for bi, n in enumerate(DENSENET_BLOCKS):
             self.add_module(f"denseblock{bi + 1}", nn.Sequential(
@@ -378,7 +461,7 @@ def densenet_features(m: nn.Module, x: torch.Tensor) -> List[torch.Tensor]:
     ``norm5``), as the reference extracts them."""
     x1 = m.input_conv(x)
     f = m.features
-    y = _maxpool_3x3_s2(F.relu(f.norm0(x1)))
+    y = f.pool0(F.relu(f.norm0(x1)))
     feats = [x1]
     for bi in range(1, len(DENSENET_BLOCKS) + 1):
         y = getattr(f, f"denseblock{bi}")(y)
@@ -389,28 +472,32 @@ def densenet_features(m: nn.Module, x: torch.Tensor) -> List[torch.Tensor]:
 
 
 class DenseNetEncoder(nn.Module):
-    """densenet121 encoder with grayscale stem (block config (6, 12, 24,
-    16), growth 32); ``forward`` yields x1..x5 with 64, 256, 512, 1024 and
-    1024 channels."""
+    """densenet121 encoder with grayscale stem, the plain 7×7/s2 conv (as
+    in the JAX package, which has no s2d form for it; block config (6,
+    12, 24, 16), growth 32); ``forward`` yields x1..x5 with 64, 256, 512,
+    1024 and 1024 channels."""
 
     def __init__(self, *, device="cuda", dtype=torch.float32):
         super().__init__()
         kw = dict(device=resolve_device(device), dtype=dtype)
-        self.input_conv = nn.Conv2d(1, 64, 7, 2, 3, bias=False, **kw)
+        self.input_conv = Conv2d(1, 64, 7, 2, 3, bias=False, **kw)
         self.features = _DenseFeatures(**kw)
 
     def forward(self, x) -> List[torch.Tensor]:
         return densenet_features(self, x)
 
 
-def make_encoder(backbone: str, *, device="cuda",
-                 dtype=torch.float32) -> nn.Module:
+def make_encoder(backbone: str, *, reparam_in_train: bool = False,
+                 device="cuda", dtype=torch.float32) -> nn.Module:
+    """The encoder of ``backbone``; ``reparam_in_train`` reaches the
+    ResNets' stem (densenet121's has no s2d form)."""
     if backbone == "densenet121":
         return DenseNetEncoder(device=device, dtype=dtype)
     if backbone not in RESNET_BLOCKS:
         raise ValueError(f"Unknown backbone: {backbone}")
     return ResNetEncoder(RESNET_BLOCKS[backbone], backbone in BOTTLENECK,
-                         device=device, dtype=dtype)
+                         reparam_in_train=reparam_in_train, device=device,
+                         dtype=dtype)
 
 
 def encoder_features(backbone: str):

@@ -13,7 +13,10 @@ Inference routes two decoder ops through the port's Hopper kernels:
   levels). Those thresholds were set from TPU v5e numbers; H100 numbers
   re-set them later (ROADMAP).
 
-Both engage only in eval mode, as in JAX (``train=False``). Module names
+Both engage only in eval mode, as in JAX (``train=False``). So do the
+two exact reparameterisations, the contracted head (``fuse_head``) and
+the ResNets' space-to-depth stem (``stem_s2d``), unless
+``reparam_in_train`` engages them in training too. Module names
 follow the reference (``input_conv``, ``enc1.0.conv1``, ``upconv4``,
 ``decoder4.0``, ``attention4.W_g.0``, ``ch_attention4.fc.0``,
 ``upconv0``, ``conv_final``), so a reference checkpoint loads with
@@ -34,6 +37,7 @@ from segtpu_torch import resolve_device
 from segtpu_torch.kernels.fused_conv import upsample2x_concat
 from segtpu_torch.models.attention import AttentionGate, ChannelAttention
 from segtpu_torch.models.backbones import (BACKBONE_CHANNELS, BatchNorm2d,
+                                           Conv2d, GrayStem,
                                            encoder_features, make_encoder)
 from segtpu_torch.ops.resize import resize_bilinear
 
@@ -66,9 +70,9 @@ class _DecoderBlock(nn.Sequential):
                  dtype=torch.float32):
         kw = dict(device=resolve_device(device), dtype=dtype)
         super().__init__(
-            nn.Conv2d(cin, features, 3, padding=1, **kw),
+            Conv2d(cin, features, 3, padding=1, **kw),
             BatchNorm2d(features, **kw), nn.ReLU(),
-            nn.Conv2d(features, features, 3, padding=1, **kw),
+            Conv2d(features, features, 3, padding=1, **kw),
             BatchNorm2d(features, **kw), nn.ReLU())
 
 
@@ -104,6 +108,9 @@ class UNetWithBackbone(nn.Module):
     (B, n_classes, H, W), or ``(logits, features)`` with
     ``return_features=True`` (x2 resized to x3's size, concatenated with
     x3, float32). ``dtype`` is the parameter and compute type.
+    ``stem_s2d`` (a ResNet's space-to-depth stem) and ``fuse_head`` run
+    at inference, and with ``reparam_in_train`` in training too, as in
+    the JAX package.
     """
 
     def __init__(self, n_classes: int = 1, backbone: str = "resnet34",
@@ -111,7 +118,8 @@ class UNetWithBackbone(nn.Module):
                  final_bias_prior: Optional[float] = None,
                  fuse: str = "kernel", fuse_min_cin: int = 96,
                  fuse_min_work: int = 16384, fuse_head: bool = True,
-                 fuse_gate: bool = True, *, device="cuda"):
+                 fuse_gate: bool = True, reparam_in_train: bool = False,
+                 *, device="cuda"):
         super().__init__()
         if fuse not in ("none", "kernel"):
             raise ValueError(f"fuse must be 'none' or 'kernel'; got {fuse!r}")
@@ -127,10 +135,13 @@ class UNetWithBackbone(nn.Module):
         self.fuse_min_work = fuse_min_work
         self.fuse_head = fuse_head
         self.fuse_gate = fuse_gate
+        self.reparam_in_train = reparam_in_train
         self._routing_batch = None     # set by ``routing_at_batch``
 
         # the encoder's modules sit at the top level (reference key names)
-        for name, mod in make_encoder(backbone, **kw).named_children():
+        for name, mod in make_encoder(
+                backbone, reparam_in_train=reparam_in_train,
+                **kw).named_children():
             self.add_module(name, mod)
         self._encoder_features = encoder_features(backbone)
         plan = _DECODER_PLAN[backbone]
@@ -154,6 +165,17 @@ class UNetWithBackbone(nn.Module):
         self.final_bias_prior = final_bias_prior
         self._set_final_bias_prior()
         self.to(memory_format=torch.channels_last)
+
+    @property
+    def stem_s2d(self) -> bool:
+        """Whether the stem is a ResNet's with its space-to-depth form on
+        (the stem holds the flag; densenet121's stem has no such form)."""
+        return isinstance(self.input_conv, GrayStem) and self.input_conv.s2d
+
+    @stem_s2d.setter
+    def stem_s2d(self, on: bool) -> None:
+        if isinstance(self.input_conv, GrayStem):
+            self.input_conv.s2d = bool(on)
 
     def _set_final_bias_prior(self):
         if self.final_bias_prior is not None:
@@ -239,15 +261,19 @@ class UNetWithBackbone(nn.Module):
                     cat = torch.cat([skip, upconv(d)], dim=1)
                 d = decoder(cat)
 
-        if self.fuse_head and not self.training:
+        if self.fuse_head and (not self.training or self.reparam_in_train):
             # upconv0 (2×2/s2 convT, Cin→16) and conv_final (1×1, 16→n)
             # have no nonlinearity between them: contract the two weights
             # into one (Cin, n, 2, 2) transposed conv, exact up to fp
             # reassociation, so the 16-channel full-resolution map is
-            # never written.
-            wf = self.conv_final.weight[:, :, 0, 0].float()
-            w = torch.einsum("ioyx,no->inyx", self.upconv0.weight.float(), wf)
-            b = self.conv_final.bias.float() + wf @ self.upconv0.bias.float()
+            # never written. The contraction runs in f32 at least (float64
+            # for a float64 model, whose training it is part of with
+            # ``reparam_in_train``).
+            dt = torch.promote_types(self.conv_final.weight.dtype,
+                                     torch.float32)
+            wf = self.conv_final.weight[:, :, 0, 0].to(dt)
+            w = torch.einsum("ioyx,no->inyx", self.upconv0.weight.to(dt), wf)
+            b = self.conv_final.bias.to(dt) + wf @ self.upconv0.bias.to(dt)
             out = F.conv_transpose2d(d, w.to(d.dtype), b.to(d.dtype),
                                      stride=2)
             out = _center_crop_to(out, x.shape[2], x.shape[3])

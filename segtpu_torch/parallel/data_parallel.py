@@ -28,32 +28,52 @@ op. Blocks are the JAX package's ceil partition, so a batch that does
 not divide by the world size, or has fewer rows than ranks, leaves the
 last ranks short or empty, and the step still equals the single-device
 one.
+
+On a 2-D mesh ``("data", "spatial")`` a batch placed ``[Shard(0),
+Shard(2)]`` (``torch.distributed.tensor.distribute_tensor``, or
+``shard_batch(..., spatial_axis="spatial")``) also splits each image's
+rows into bands over the spatial axis, as GSPMD does with
+``P("data", "spatial")``: the model runs on the bands
+(``parallel/spatial.py``), the BatchNorms' sums run over the whole mesh
+and count the global height, and the gather, and the gradients' sum,
+cover every rank of the mesh. A batch placed over ``data`` alone takes
+the path above.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Optional
 
 import torch
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import DTensor, Shard
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from segtpu_torch.core.dist import (all_reduce_, all_reduce_sum,
-                                    batch_sharding, broadcast_, create_mesh,
-                                    gather_rows, process_rows)
+from segtpu_torch.core.dist import (all_reduce_, all_reduce_sum, broadcast_,
+                                    create_mesh, gather_rows, process_rows)
+from segtpu_torch.models.backbones import synced_batch_stats
+from segtpu_torch.parallel.spatial import Bands, on_bands
 
 
 def shard_batch(arr: torch.Tensor, mesh: DeviceMesh, axis: str = "data",
-                dim: int = 0) -> DTensor:
+                dim: int = 0, spatial_axis: Optional[str] = None) -> DTensor:
     """The global batch ``arr`` (the same on every rank) as a ``DTensor``
     holding this rank's block of rows along ``dim`` (0, or 1 for the
     stacked micro-batches of ``train_step_accum``), sharded over
-    ``axis``."""
-    group = mesh.get_group(axis)
-    rows = process_rows(arr.shape[dim], group.size(), group.rank())
-    local = arr.narrow(dim, rows.start, rows.stop - rows.start)
-    placements = [Shard(dim) if isinstance(p, Shard) else p
-                  for p in batch_sharding(mesh, axis)]
+    ``axis``; with ``spatial_axis``, also this rank's band of the images'
+    rows (dim ``dim + 2``) over that axis: ``distribute_tensor``'s
+    blocks, with no communication."""
+    local, placements = arr, []
+    for name in mesh.mesh_dim_names:
+        d = dim if name == axis else dim + 2 if name == spatial_axis \
+            else None
+        if d is None:
+            placements.append(Replicate())
+            continue
+        group = mesh.get_group(name)
+        rows = process_rows(arr.shape[d], group.size(), group.rank())
+        local = local.narrow(d, rows.start, rows.stop - rows.start)
+        placements.append(Shard(d))
     return DTensor.from_local(local, mesh, placements, run_check=False,
                               shape=arr.shape, stride=arr.stride())
 
@@ -106,42 +126,91 @@ def replicate_state(state: Any, mesh: DeviceMesh, axis: str = "data"):
 
 
 class StepSync:
-    """A data-parallel step's view of its batch: ``rows`` global rows on
-    the ranks of ``group``."""
+    """A sharded step's view of its batch: ``rows`` global rows in blocks
+    on the ranks of ``group`` (None: every rank holds all of them), and
+    with ``bands`` (a ``parallel.spatial.Bands``) each image's rows in
+    bands over the spatial axis."""
 
-    def __init__(self, group, rows: int):
-        self.group, self.rows = group, int(rows)
+    def __init__(self, group, rows: int, bands: Optional[Bands] = None):
+        self.group, self.rows, self.bands = group, int(rows), bands
+        self._groups = [g for g in (
+            group, bands.group if bands is not None else None)
+            if g is not None]
+
+    def count(self, x: torch.Tensor) -> int:
+        """The values per channel of the global batch at ``x``'s level
+        (the BatchNorms' count): its rows times that level's global
+        height and width."""
+        n = self.bands.n if self.bands is not None else 1
+        return self.rows * x.shape[2] * n * x.shape[3]
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
-        """Differentiable sum over the ranks (the BatchNorms' sums)."""
-        return all_reduce_sum(t, self.group)
+        """Differentiable sum over every rank of the mesh (the BatchNorms'
+        sums): one collective per mesh axis."""
+        for g in self._groups:
+            t = all_reduce_sum(t, g)
+        return t
 
     def gather(self, t: torch.Tensor) -> torch.Tensor:
-        """The global batch of ``t``'s rows, on every rank, with autograd."""
-        return gather_rows(t, self.rows, self.group)
+        """The global batch of ``t`` (its bands' whole images, then its
+        rows), on every rank, with autograd."""
+        if self.bands is not None:
+            t = self.bands.gather(t)
+        if self.group is not None:
+            t = gather_rows(t, self.rows, self.group)
+        return t
 
     def reduce_gradients(self, params) -> None:
-        """Sum the parameters' gradients over the ranks: one collective of
-        the gradients laid end to end."""
+        """Sum the parameters' gradients over every rank of the mesh: one
+        collective per mesh axis of the gradients laid end to end."""
         grads = [p.grad for p in params if p.grad is not None]
-        flat = all_reduce_(torch.cat([g.reshape(-1) for g in grads]),
-                           self.group)
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        for g in self._groups:
+            all_reduce_(flat, g)
         for g, v in zip(grads, flat.split([g.numel() for g in grads])):
             g.copy_(v.view_as(g))
 
 
+@contextlib.contextmanager
+def synced(model: torch.nn.Module, sync: Optional[StepSync]):
+    """Within it, ``model``'s forwards take ``sync``'s view of the batch:
+    train-mode BatchNorms the global batch's statistics, and on bands
+    every layer its halo rows (``on_bands``); with ``sync`` None, nothing
+    changes."""
+    bands = sync.bands if sync is not None else None
+    with synced_batch_stats(model, sync), on_bands(model, bands):
+        yield
+
+
 def local_batch(images, masks):
     """(this rank's images, its masks, the step's ``StepSync``) of a
-    sharded batch; a plain batch, or one sharded over a single rank,
+    sharded batch (B, 1, H, W), or stacked micro-batches (A, B, 1, H, W):
+    its rows sharded over one mesh axis, and its images' rows (H) over
+    another or none. A plain batch, or one sharded over single ranks,
     passes through with ``None``, so that its step is the single-device
     one."""
     if not isinstance(images, DTensor):
         return images, masks, None
-    (dim, shard), = [(i, p) for i, p in enumerate(images.placements)
-                     if isinstance(p, Shard)]
-    group = images.device_mesh.get_group(dim)
-    sync = StepSync(group, images.shape[shard.dim]) if group.size() > 1 \
-        else None
+    mesh, nd = images.device_mesh, images.ndim
+    rows = height = None
+    for mdim, p in enumerate(images.placements):
+        if not isinstance(p, Shard):
+            continue
+        if p.dim % nd == nd - 4:
+            rows = mdim
+        elif p.dim % nd == nd - 2:
+            height = mdim
+        else:
+            raise ValueError(f"a batch {tuple(images.shape)} sharded along "
+                             f"dim {p.dim}: only its rows (dim {nd - 4}) "
+                             f"and its images' rows (dim {nd - 2}) can be")
+    group = mesh.get_group(rows) if rows is not None else None
+    group = group if group is not None and group.size() > 1 else None
+    band_group = mesh.get_group(height) if height is not None else None
+    bands = Bands(band_group, images.shape[nd - 2]) \
+        if band_group is not None and band_group.size() > 1 else None
+    sync = StepSync(group, images.shape[nd - 4], bands) \
+        if group is not None or bands is not None else None
     return images.to_local(), masks.to_local(), sync
 
 
@@ -194,8 +263,9 @@ class DataParallel:
     def n_devices(self) -> int:
         return self.mesh.size()
 
-    def shard(self, arr: torch.Tensor, dim: int = 0) -> DTensor:
-        return shard_batch(arr, self.mesh, self.axis, dim)
+    def shard(self, arr: torch.Tensor, dim: int = 0,
+              spatial_axis: Optional[str] = None) -> DTensor:
+        return shard_batch(arr, self.mesh, self.axis, dim, spatial_axis)
 
     def replicate(self, state):
         return replicate_state(state, self.mesh, self.axis)

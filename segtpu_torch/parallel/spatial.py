@@ -1,5 +1,6 @@
 """Row-sharded (halo-exchange) inference of one large image (port of
-``segtpu/parallel/spatial.py``).
+``segtpu/parallel/spatial.py``), and the row bands of training on a
+(data × spatial) mesh.
 
 The image is cut into N row bands, one per rank of the mesh axis; each
 rank holds an ``(H/N, W)`` band, receives ``halo`` rows from each
@@ -13,46 +14,140 @@ receptive radius is at most ``halo``.
 Per forward each rank pair moves 2·halo·W·C values, whatever N. On a
 gloo group (two ranks on one card) the halo rows go through host memory
 explicitly; NCCL takes them on the device.
+
+Training on a batch placed over ``("data", "spatial")`` (``Shard(0)``
+and ``Shard(2)``, the counterpart of the JAX package's
+``P("data", "spatial")``, where GSPMD cuts each convolution along the
+rows) runs every layer on the bands (``Bands``, ``on_bands``): each layer
+whose window spans more than one row takes exactly the rows it needs
+from the neighbouring bands, layer by layer, with its own padding (zeros
+for a conv, −inf for the max-pool) at the images' edges; the channel
+attention pools the whole image; the BatchNorms count the global
+height. So the bands' outputs are the rows of the whole image's, and the
+step equals the single-device step on the whole batch. Each band is
+``STRIDE``-aligned, so that every level of the encoders cuts at a row
+that the whole image's forward cuts at too.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+import contextlib
+from typing import Callable, Optional
 
 import numpy as np
 import torch
-import torch.distributed as dist
+import torch.nn as nn
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor
 
-from segtpu_torch.core.dist import all_gather_rows, batch_sharding
+from segtpu_torch.core.dist import (all_gather_rows, all_reduce_sum,
+                                    amax_over_ranks, batch_sharding,
+                                    exchange_rows, gather_rows, halo_rows)
 from segtpu_torch.infer.predict import nhwc_forward, output_activation
+from segtpu_torch.models.attention import ChannelAttention
+from segtpu_torch.models.backbones import Conv2d, MaxPool
+
+# The encoders' output stride: a band height must be a multiple of it.
+STRIDE = 32
+# The layers that run on bands (their ``bands`` attribute).
+BAND_LAYERS = (Conv2d, MaxPool, ChannelAttention)
+
+
+class Bands:
+    """Training's view of its images' rows on the ranks of ``group``:
+    each rank holds a band of ``height // group.size()`` of their
+    ``height`` rows, top to bottom in rank order. The band height must be
+    a multiple of ``STRIDE``; any other is refused (nothing is padded or
+    cropped around it)."""
+
+    def __init__(self, group, height: int):
+        n = group.size()
+        if height % n or (height // n) % STRIDE:
+            raise ValueError(
+                f"row bands: {height} image rows over {n} ranks of the "
+                f"spatial axis give bands of {height / n:g} rows; a band "
+                f"must be a whole multiple of {STRIDE} rows (the encoders' "
+                f"stride)")
+        self.group, self.height, self.n = group, int(height), n
+
+    def pad_rows(self, x: torch.Tensor, kernel: int, stride: int,
+                 padding: int, dilation: int = 1,
+                 fill: float = 0.0) -> torch.Tensor:
+        """``x`` (N, C, h, W) with the halo rows a window of ``kernel``
+        rows (``stride``, ``padding`` on top, ``dilation``) needs on this
+        band: ``padding`` rows on top and what the window reaches past
+        the bottom row, from the neighbours' bands, ``fill`` at the
+        images' edges. The layer then runs with no row padding."""
+        if x.shape[2] % stride:
+            raise ValueError(f"row bands: a band of {x.shape[2]} rows at "
+                             f"stride {stride}")
+        bottom = max(0, dilation * (kernel - 1) + 1 - stride - padding)
+        return halo_rows(x, padding, bottom, fill, self.group)
+
+    def mean(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean over dims (2, 3) of the whole images (N, C, 1, 1): the
+        bands' sums (in float32 at least) over the global H·W."""
+        xf = x if x.dtype in (torch.float32, torch.float64) else x.float()
+        total = all_reduce_sum(xf.sum((2, 3), keepdim=True), self.group)
+        return (total / (self.n * x.shape[2] * x.shape[3])).to(x.dtype)
+
+    def amax(self, x: torch.Tensor) -> torch.Tensor:
+        """The maximum over dims (2, 3) of the whole images."""
+        return amax_over_ranks(x, self.group)
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """The whole images of the bands ``t`` (..., h, W), on every rank,
+        with autograd (each rank's backward keeps its own band)."""
+        return gather_rows(t.movedim(-2, 0), self.height,
+                           self.group).movedim(0, -2)
+
+
+def _spans_rows(mod: nn.Module) -> bool:
+    """A layer (not a band layer) whose window spans more than one row of
+    its input, so that it cannot run band by band on its own."""
+    if isinstance(mod, nn.Conv2d):
+        return mod.kernel_size[0] > 1
+    if isinstance(mod, nn.ConvTranspose2d):     # overlapping windows
+        return (mod.kernel_size[0] > mod.stride[0]
+                or mod.padding[0] != 0)
+    return isinstance(mod, (nn.MaxPool2d, nn.AvgPool2d, nn.AdaptiveAvgPool2d,
+                            nn.AdaptiveMaxPool2d, nn.Upsample))
+
+
+@contextlib.contextmanager
+def on_bands(model: nn.Module, bands: Optional[Bands]):
+    """Within it, ``model``'s forwards (train or eval mode) run on the row
+    bands of ``bands``: every band layer (``BAND_LAYERS``) takes it; with
+    ``bands`` None, nothing changes. A layer whose window spans more than
+    one row and which is not a band layer is refused here, before any
+    forward, rather than run on its band alone. Hold it over the backward
+    too where a checkpointed forward is re-run there."""
+    mods = []
+    if bands is not None:
+        for name, mod in model.named_modules():
+            if isinstance(mod, BAND_LAYERS):
+                mods.append(mod)
+            elif _spans_rows(mod):
+                raise ValueError(
+                    f"row bands: {name} ({type(mod).__name__}) spans more "
+                    f"than one row and takes no halo rows; it cannot run "
+                    f"on a band")
+    for mod in mods:
+        mod.bands = bands
+    try:
+        yield
+    finally:
+        for mod in mods:
+            mod.bands = None
 
 
 def _exchange(band: torch.Tensor, halo: int, group):
     """(rows from the rank above, rows from the rank below) of ``band``
     (h, W, C): each rank sends its top ``halo`` rows up and its bottom
     ones down; the first and last ranks replicate their edge row."""
-    n, r = group.size(), group.rank()
     h = band.shape[0]
-    host = dist.get_backend(group) == "gloo" and band.device.type != "cpu"
-    stage = (lambda t: t.cpu()) if host else (lambda t: t)
-    up, down = stage(band[:halo].contiguous()), \
-        stage(band[h - halo:].contiguous())
-    from_above = torch.empty_like(down) if r > 0 else None
-    from_below = torch.empty_like(up) if r < n - 1 else None
-    ops = []
-    if r > 0:
-        peer = dist.get_global_rank(group, r - 1)
-        ops += [dist.P2POp(dist.isend, up, peer, group),
-                dist.P2POp(dist.irecv, from_above, peer, group)]
-    if r < n - 1:
-        peer = dist.get_global_rank(group, r + 1)
-        ops += [dist.P2POp(dist.isend, down, peer, group),
-                dist.P2POp(dist.irecv, from_below, peer, group)]
-    if ops:
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
+    from_above, from_below = exchange_rows(band[:halo], band[h - halo:],
+                                           group)
     top = band[:1].expand(halo, *band.shape[1:]) if from_above is None \
         else from_above.to(band.device)
     bottom = band[h - 1:].expand(halo, *band.shape[1:]) \

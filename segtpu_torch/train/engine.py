@@ -48,10 +48,9 @@ from segtpu_torch import resolve_device
 from segtpu_torch.data.loader import DeviceDataLoader
 from segtpu_torch.losses import get_loss_function
 from segtpu_torch.metrics import calculate_metrics
-from segtpu_torch.models.backbones import (frozen_running_stats,
-                                           synced_batch_stats)
+from segtpu_torch.models.backbones import frozen_running_stats
 from segtpu_torch.models.unet import UNetWithBackbone
-from segtpu_torch.parallel.data_parallel import local_batch
+from segtpu_torch.parallel.data_parallel import local_batch, synced
 from segtpu_torch.train.optim import (functional_init, functional_step,
                                       load_functional_state, make_optimizer,
                                       set_learning_rate)
@@ -230,9 +229,10 @@ class TrainEngine:
         """Forward, loss, backward (gradients added, scaled by
         ``scale``); returns the metric vector of the pre-update logits.
         Under data parallelism (``sync``, ``parallel/data_parallel.py``)
-        the BatchNorms take the global batch's statistics and the loss and
-        the metrics the gathered global batch."""
-        with synced_batch_stats(model, sync):
+        the BatchNorms take the global batch's statistics, the layers on
+        row bands their halo rows, and the loss and the metrics the
+        gathered global batch."""
+        with synced(model, sync):
             with self.autocast():
                 logits = _at_least_f32(self._forward_train(model, images))
             if sync is not None:
@@ -257,7 +257,9 @@ class TrainEngine:
                    lr: Optional[float] = None
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One update on a batch (B, 1, S, S), plain or sharded
-        (``parallel.shard_batch``); metrics as 0-d tensors."""
+        (``parallel.shard_batch``: its rows over a mesh axis, and on a
+        ``("data", "spatial")`` mesh its images' rows in bands too);
+        metrics as 0-d tensors."""
         if lr is not None:
             set_learning_rate(state.optimizer, lr)
         vec = self._train_step_vec(state, images, masks)
@@ -271,8 +273,9 @@ class TrainEngine:
         normalises by its own BatchNorm statistics and moves the running
         statistics in turn; the gradients and the metrics are averaged
         over A. Sharded, the micro-batches' rows are split over the ranks
-        (``shard_batch(..., dim=1)``) and the gradients summed over them
-        once, before the update."""
+        (``shard_batch(..., dim=1)``; their images' rows, dim 3, may be in
+        bands too) and the gradients summed over them once, before the
+        update."""
         if lr is not None:
             set_learning_rate(state.optimizer, lr)
         model, opt = state.model, state.optimizer
@@ -293,7 +296,7 @@ class TrainEngine:
         model = state.model
         images, masks, sync = local_batch(images, masks)
         model.eval()
-        with torch.no_grad(), self.autocast():
+        with torch.no_grad(), self.autocast(), synced(model, sync):
             logits = _at_least_f32(model(images))
         if sync is not None:
             logits, masks = sync.gather(logits), sync.gather(masks)
@@ -495,16 +498,12 @@ def get_engine(config: Dict, criterion: Optional[Callable] = None, *,
                device="cuda") -> TrainEngine:
     """A new engine for config (reference key names: backbone,
     use_attention, n_classes, dtype, final_bias_prior, fuse, remat,
-    fuse_gate, the loss keys, optimizer and its keys) on ``device``;
-    ``criterion`` replaces the configured loss. The port's defaults:
-    ``fuse="kernel"``, ``fuse_gate=True``. (The JAX package caches engines
-    to share compiled programs; an engine here holds only its settings
-    and a loss function, so none is cached.)"""
+    fuse_gate, reparam_in_train, the loss keys, optimizer and its keys) on
+    ``device``; ``criterion`` replaces the configured loss. The port's
+    defaults: ``fuse="kernel"``, ``fuse_gate=True``. (The JAX package
+    caches engines to share compiled programs; an engine here holds only
+    its settings and a loss function, so none is cached.)"""
     dev = resolve_device(device)
-    if config.get("reparam_in_train", False):
-        raise NotImplementedError(
-            "reparam_in_train=True (the stem rewrite in training) is not "
-            "ported yet (ROADMAP A2)")
     dtype = str(config.get("dtype", "float32"))
     if dtype not in _COMPUTE_DTYPES:
         raise ValueError(f"dtype must be one of {sorted(_COMPUTE_DTYPES)}; "
@@ -515,7 +514,9 @@ def get_engine(config: Dict, criterion: Optional[Callable] = None, *,
                         n_classes=n_classes,
                         final_bias_prior=config.get("final_bias_prior"),
                         fuse=str(config.get("fuse", "kernel")),
-                        fuse_gate=bool(config.get("fuse_gate", True)))
+                        fuse_gate=bool(config.get("fuse_gate", True)),
+                        reparam_in_train=bool(
+                            config.get("reparam_in_train", False)))
     multiclass = n_classes > 1
     if criterion is None and multiclass:
         from segtpu_torch.losses.multiclass import get_multiclass_loss

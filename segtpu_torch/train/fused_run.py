@@ -69,7 +69,7 @@ STEPS = ("train_full", "train_rem", "eval_full", "eval_rem", "book")
 WARMUP_CALLS = 2
 # the model attributes that route its forward (read when it is captured)
 ROUTING = ("fuse", "fuse_gate", "fuse_head", "fuse_min_cin",
-           "fuse_min_work")
+           "fuse_min_work", "reparam_in_train", "stem_s2d")
 RUNNERS = LRUCache(2)
 
 

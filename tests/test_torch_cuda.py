@@ -838,6 +838,54 @@ def test_synced_batchnorm_at_world_one_equals_cudnns(nccl_world_one):
                                atol=0)
 
 
+def test_halo_rows_over_one_nccl_rank_are_the_band_and_its_padding(
+        nccl_world_one):
+    """A spatial axis of one rank (NCCL, CUDA tensors): the band is the
+    whole image, so ``halo_rows`` gives it back with rows of the layer's
+    padding above and below (zeros for a conv, −inf for the max-pool),
+    and its adjoint hands the band its own rows' gradients (those of the
+    padding dropped)."""
+    from segtpu_torch.core.dist import halo_rows
+    group = nccl_world_one.get_group(0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(2, 3, 8, 5, generator=gen, device="cuda").contiguous(
+        memory_format=torch.channels_last).requires_grad_(True)
+    for fill, top, bottom in ((0.0, 2, 1), (float("-inf"), 1, 0)):
+        y = halo_rows(x, top, bottom, fill, group)
+        assert y.is_cuda and y.shape == (2, 3, 8 + top + bottom, 5)
+        assert torch.equal(y[:, :, top:top + 8], x.detach())
+        assert bool((y[:, :, :top] == fill).all())
+        assert bool((y[:, :, top + 8:] == fill).all())
+        g = torch.randn(y.shape, generator=gen, device="cuda")
+        x.grad = None
+        y.backward(g)
+        assert torch.equal(x.grad, g[:, :, top:top + 8])
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_stem_s2d_equals_the_plain_stem_on_the_card(cuda, dtype):
+    """The ResNets' stem on a 512² batch: its space-to-depth form (a
+    4×4/s1 conv over ``pixel_unshuffle``) against its plain 7×7/s2 conv,
+    at inference and, with ``reparam_in_train``, the weight's gradient
+    in train mode, within the file's bars of the output's scale."""
+    from segtpu_torch.models.backbones import GrayStem
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.rand(4, 1, 512, 512, generator=gen, device="cuda").to(
+        dtype).contiguous(memory_format=torch.channels_last)
+    stem = GrayStem(device="cuda", dtype=dtype, reparam_in_train=True)
+    proj = torch.randn(4, 64, 256, 256, generator=gen, device="cuda")
+    out, grads = {}, {}
+    for s2d in (True, False):
+        stem.s2d = s2d
+        with torch.no_grad():
+            out[s2d] = stem.eval()(x)
+        stem.weight.grad = None
+        (stem.train()(x).float() * proj).sum().backward()
+        grads[s2d] = stem.weight.grad.clone()
+    _close(out[True], out[False].float(), dtype)
+    _close(grads[True], grads[False].float(), dtype)
+
+
 _NCCL_TWO_RANKS = """\
 import datetime, sys, torch, torch.distributed as dist
 torch.cuda.set_device(0)

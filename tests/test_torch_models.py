@@ -277,6 +277,48 @@ def test_encoder_features_match_jax(rng):
         np.testing.assert_allclose(_nhwc(t), np.asarray(r), atol=ATOL)
 
 
+def test_stem_s2d_map_and_weight_match_jax():
+    """``stem_s2d_weight`` (pad and ``pixel_unshuffle`` of the 7×7 kernel)
+    is the JAX package's constant map applied to the kernel, exactly."""
+    from segtpu.models.backbones import _stem_s2d_map as jax_map
+    from segtpu_torch.models.backbones import stem_s2d_weight
+    w7 = torch.from_numpy(np.random.default_rng(4).normal(
+        size=(64, 1, 7, 7)))
+    want = torch.einsum("uvabp,cuv->cpab",
+                        torch.from_numpy(np.asarray(jax_map())).double(),
+                        w7[:, 0])
+    assert torch.equal(stem_s2d_weight(w7), want)
+
+
+@pytest.mark.parametrize("size", [64, 63], ids=["even", "odd-falls-back"])
+def test_stem_s2d_matches_jax_and_the_plain_stem(rng, size):
+    """tests/test_models.py::test_stem_s2d_parity for the port: at
+    inference the s2d stem's features equal the JAX encoder's
+    (``stem_s2d=True``) and the port's plain stem's within 2e-5; an odd
+    size runs the plain stem (bit for bit)."""
+    p, s = _jax_variables("resnet_tiny", False)
+    x = rng.normal(size=(2, size, size, 1)).astype(np.float32)
+    ref = jax_make_encoder("resnet_tiny").apply(
+        {"params": p["encoder"], "batch_stats": s["encoder"]},
+        jnp.asarray(x), False)
+    enc = make_encoder("resnet_tiny", device="cpu")
+    sd = state_dict_from_jax(p, s, "resnet_tiny", False, device="cpu")
+    enc.load_state_dict({k: v for k, v in sd.items()
+                         if k.split(".")[0] in ("input_conv", "bn1", "enc1",
+                                                "enc2", "enc3", "enc4")})
+    enc.eval()
+    with torch.no_grad():
+        got = enc(_nchw(x))
+        enc.input_conv.s2d = False
+        plain = enc(_nchw(x))
+    for g, r, q in zip(got, ref, plain):
+        np.testing.assert_allclose(_nhwc(g), np.asarray(r), atol=2e-5,
+                                   rtol=2e-5)
+        np.testing.assert_allclose(_nhwc(g), _nhwc(q), atol=2e-5, rtol=2e-5)
+        if size % 2:
+            assert torch.equal(g, q)
+
+
 # resnet_tiny at 64²: attention on/off × gate kernel on/off × upsample
 # kernel on/off, the head contraction on/off, the bias prior, 2 classes.
 UNET_CASES = {

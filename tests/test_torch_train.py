@@ -489,10 +489,53 @@ def test_train_model_with_a_remainder_of_one_matches_jax():
             np.testing.assert_allclose(g[k], w[k], atol=1e-2)
 
 
-def test_train_model_leaves_out_what_is_not_ported():
-    cfg = dict(backbone="resnet_tiny", img_size=(S, S), verbose=False)
-    with pytest.raises(NotImplementedError, match="A2"):
-        get_engine({**cfg, "reparam_in_train": True}, device="cpu")
+def test_reparam_in_train_step_matches_jax_in_float64(monkeypatch):
+    """``get_engine({"reparam_in_train": True})`` trains: one float64 SGD
+    step of resnet_tiny with attention and the combo loss, through the
+    s2d stem and the contracted head, equals the JAX package's
+    ``_train_step`` with the same key on the same weights: parameters
+    within 1e-9 of the largest, each running statistic within 1e-9 of its
+    tensor's largest entry, the loss within 1e-12 of itself."""
+    from segtpu.train.engine import get_engine as jax_get_engine
+    from segtpu_torch.models import backbones
+    cfg = {"backbone": "resnet_tiny", "use_attention": True,
+           "loss_fn": "combo", "optimizer": "sgd", "reparam_in_train": True}
+    x, y = _batch()
+    _, (p, s) = _jax_init(True)
+    with jax.enable_x64(True):
+        p, s = (jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), t)
+                for t in (p, s))
+        eng = jax_get_engine({**cfg, "dtype": "float64"})
+        st, m = eng._train_step(eng.state_from(p, s, LR, WD),
+                                jnp.asarray(x, jnp.float64),
+                                jnp.asarray(y, jnp.float64))
+        want = _to_port_f64(jax.device_get(st.params),
+                            jax.device_get(st.batch_stats), True)
+        want_loss = float(m["loss"])
+    stems = []
+    weight = backbones.stem_s2d_weight
+    monkeypatch.setattr(backbones, "stem_s2d_weight",
+                        lambda w: stems.append(w.shape) or weight(w))
+    engine = get_engine(cfg, device="cpu")
+    model = engine.build_model()
+    model.load_state_dict(state_dict_from_jax(p, s, "resnet_tiny", True,
+                                              device="cpu"))
+    model.double()
+    assert model.reparam_in_train and model.stem_s2d
+    state = TrainState(model, engine.make_optimizer(model, LR, WD))
+    _, got_m = engine.train_step(state, _nchw(x, torch.float64),
+                                 _nchw(y, torch.float64))
+    assert stems == [(64, 1, 7, 7)]       # the train step's stem was s2d
+    assert abs(float(got_m["loss"]) - want_loss) <= 1e-12 * abs(want_loss)
+    sd = model.state_dict()
+    params = [k for k in want if "running" not in k
+              and not k.endswith("num_batches_tracked")]
+    pmax = max(float(want[k].abs().max()) for k in params)
+    for k in params:
+        torch.testing.assert_close(sd[k], want[k], rtol=0, atol=1e-9 * pmax)
+    for k in (k for k in want if "running" in k):
+        torch.testing.assert_close(sd[k], want[k], rtol=0,
+                                   atol=1e-9 * float(want[k].abs().max()))
 
 
 def test_checkpoint_round_trip_restores_model_optimizer_scheduler(
@@ -659,7 +702,10 @@ def test_get_engine_reads_the_jax_keys():
     assert _engine(True) is not a
     assert a.model_kwargs == dict(backbone="resnet_tiny", use_attention=True,
                                   n_classes=1, final_bias_prior=None,
-                                  fuse="kernel", fuse_gate=True)
+                                  fuse="kernel", fuse_gate=True,
+                                  reparam_in_train=False)
+    assert _engine(True, reparam_in_train=True).model_kwargs[
+        "reparam_in_train"] is True
     assert (a.optimizer_name, a.optimizer_kwargs) == ("adam", {})
     sgd = _engine(False, optimizer="SGD", momentum=0.8, nesterov=True,
                   adam_eps=1e-7, dtype="bfloat16", remat="full")

@@ -298,6 +298,200 @@ def scenario_tiled(inputs, rank, world):
     return out
 
 
+def _bands_mesh(world):
+    """The (data × spatial) mesh: 2×2 on 4 ranks, 1×2 on 2."""
+    from segtpu_torch.core.dist import create_mesh
+    return create_mesh(axis_sizes=(world // 2, 2),
+                       axis_names=("data", "spatial"), device="cpu")
+
+
+def _on_mesh(mesh, *tensors):
+    """Each tensor placed [Shard(rows), Shard(image rows)] over the
+    mesh, by ``distribute_tensor`` (a batch (B, 1, H, W) or stacked
+    micro-batches (A, B, 1, H, W))."""
+    from torch.distributed.tensor import Shard, distribute_tensor
+    return [distribute_tensor(t, mesh, [Shard(t.ndim - 4), Shard(t.ndim - 2)])
+            for t in tensors]
+
+
+def _stepped(engine, inputs, x, y, sd=None, accum=False, model=None):
+    """(state_dict, metrics, gradients) after one step from the inputs'
+    weights (or ``sd``), on a new model (or ``model``, in float64)."""
+    sd = sd or inputs["state_dict"]
+    if model is None:
+        st = _state(engine, dict(inputs, state_dict=sd))
+    else:
+        from segtpu_torch.train.engine import TrainState
+        model.load_state_dict(sd)
+        st = TrainState(model, engine.make_optimizer(model, inputs["lr"],
+                                                     inputs["wd"]))
+    step = engine.train_step_accum if accum else engine.train_step
+    st, m = step(st, x, y)
+    return {"sd": _sd(st), "metrics": {k: float(v) for k, v in m.items()},
+            "grads": {k: p.grad.clone()
+                      for k, p in st.model.named_parameters()}}
+
+
+def _digest(sd) -> dict:
+    """Each tensor's bytes, hashed: equal digests are equal tensors."""
+    import hashlib
+    return {k: hashlib.sha1(v.detach().contiguous().numpy().tobytes())
+            .hexdigest() for k, v in sd.items()}
+
+
+def _rel(got, want, keys) -> float:
+    return max(float((got[k] - want[k]).abs().max()) for k in keys) / max(
+        float(want[k].abs().max()) for k in keys)
+
+
+def _errors(got, want):
+    """Relative errors of a step against another (dicts of ``sd``,
+    ``metrics`` and, where both have them, ``grads``): parameters (and
+    gradients) against the largest of each, the worst running statistic
+    against its tensor's largest entry, the worst of loss and metrics
+    against itself."""
+    sd, ref = got["sd"], want["sd"]
+    params = [k for k in ref if ref[k].is_floating_point()
+              and "running" not in k]
+    out = {"params": _rel(sd, ref, params),
+           "stats": max(_rel(sd, ref, [k]) for k in ref if "running" in k),
+           "metrics": max(abs(got["metrics"][k] - v) / abs(v)
+                          for k, v in want["metrics"].items())}
+    if "grads" in got and "grads" in want:
+        out["grads"] = _rel(got["grads"], want["grads"], list(want["grads"]))
+    return out
+
+
+def _edge_replicated(self, x, kernel, stride, padding, dilation=1,
+                     fill=0.0):
+    """Negative control for ``Bands.pad_rows``: each band's own edge rows
+    replicated in place of the neighbours' rows (what the inference
+    predictor does at the image's edges)."""
+    bottom = max(0, dilation * (kernel - 1) + 1 - stride - padding)
+    return torch.cat([x[:, :, :1].expand(-1, -1, padding, -1), x,
+                      x[:, :, -1:].expand(-1, -1, bottom, -1)], dim=2)
+
+
+def _rank_local_mean(self, x):
+    """Negative control for ``Bands.mean``: the band's own mean."""
+    return x.mean(dim=(2, 3), keepdim=True)
+
+
+def scenario_mesh2d(inputs, rank, world):
+    """On a 2×2 (data × spatial) mesh, a batch placed [Shard(0),
+    Shard(2)]: the float64 step and the two controls against the JAX
+    package's step (``inputs["want"]``, computed by the test), the
+    accumulated and the eval steps against the one-process port on rank
+    0, every rank's state digests, and the refusal of a band height that
+    is not a multiple of 32. Only errors and digests are returned."""
+    from unittest import mock
+    from segtpu_torch.parallel.spatial import Bands
+
+    mesh = _bands_mesh(world)
+    engine = _engine(inputs["cfg"])
+    x, y = inputs["x"], inputs["y"]
+    xd, yd = _on_mesh(mesh, x, y)
+    got = {"step": _stepped(engine, inputs, xd, yd)}
+    for name, patch in (("edge_replicated", ("pad_rows", _edge_replicated)),
+                        ("rank_local_mean", ("mean", _rank_local_mean))):
+        with mock.patch.object(Bands, *patch):
+            got[name] = _stepped(engine, inputs, xd, yd)
+    out = {"digest": _digest(got["step"]["sd"]), "tracked": [
+        int(v) for k, v in got["step"]["sd"].items()
+        if k.endswith("num_batches_tracked")]}
+
+    xa = torch.stack([x, inputs["x2"]])
+    ya = torch.stack([y, inputs["y2"]])
+    accum = _stepped(engine, inputs, *_on_mesh(mesh, xa, ya), accum=True)
+    out["accum_digest"] = _digest(accum["sd"])
+    if rank == 0:
+        out["accum"] = _errors(accum, _stepped(engine, inputs, xa, ya,
+                                               accum=True))
+    del accum
+
+    # the eval step in float64 without the gate kernel (its plain version
+    # takes f32), and in f32 with it, against one process
+    for name, cfg, dtype in (("eval", dict(inputs["cfg"], fuse_gate=False),
+                              torch.float64),
+                             ("eval_f32", inputs["cfg"], torch.float32)):
+        eng = _engine(cfg)
+        st = _state(eng, inputs, dtype)
+        xe, ye = x.to(dtype), y.to(dtype)
+        out[name] = eng._eval_step_vec(st, *_on_mesh(mesh, xe, ye))
+        if rank == 0:
+            out[name + "_ref"] = eng._eval_step_vec(st, xe, ye)
+
+    try:
+        xs, ys = _on_mesh(mesh, x[:, :, :32, :32], y[:, :, :32, :32])
+        _stepped(engine, inputs, xs, ys)
+        out["refused"] = None
+    except ValueError as e:
+        out["refused"] = str(e)
+
+    # a batch placed over ``data`` alone (``shard_loader``'s placement)
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from segtpu_torch.parallel.data_parallel import local_batch
+    xr = distribute_tensor(x, mesh, [Shard(0), Replicate()])
+    sync = local_batch(xr, xr)[2]
+    out["data_only"] = (sync.group.size(), sync.bands is not None)
+
+    for name in ("step", "edge_replicated", "rank_local_mean"):
+        out[name] = _errors(got[name], inputs["want"])
+    return out
+
+
+def _forward_backward(engine, model, x, y):
+    """A train-mode forward of ``model`` on ``x`` (plain or sharded) and
+    one backward of the loss of its (gathered) logits: the loss, the
+    running statistics, and the gradients, summed over the mesh, of the
+    stem and of every parameter of at most 4096 values (the BatchNorms'
+    and the biases: one per layer, each carrying its layer's
+    backward)."""
+    from segtpu_torch.parallel.data_parallel import local_batch
+    xl, yl, sync = local_batch(x, y)
+    model.train()
+    model.zero_grad(set_to_none=True)
+    vec = engine._micro_step(model, xl, yl, 1.0, sync)
+    params = [(k, p) for k, p in model.named_parameters()
+              if k == "input_conv.weight" or p.numel() <= 4096]
+    if sync is not None:
+        sync.reduce_gradients([p for _, p in params])
+    return {"loss": float(vec[-1]),
+            "grads": {k: p.grad.clone() for k, p in params},
+            "stats": {k: v.clone() for k, v in model.state_dict().items()
+                      if "running" in k}}
+
+
+def scenario_bands(inputs, rank, world):
+    """On a 1×2 (data × spatial) mesh (bands of 32 rows, B=2, float64):
+    the ``reparam_in_train`` step of resnet_tiny, and a forward and a
+    backward of resnet50 and densenet121 (attention, fresh weights from
+    seed 0), each against the one-process port on rank 0."""
+    from segtpu_torch.train.engine import get_engine
+
+    mesh = _bands_mesh(world)
+    x, y = inputs["x"][:2], inputs["y"][:2]
+    xd, yd = _on_mesh(mesh, x, y)
+    engine = _engine(dict(inputs["cfg"], reparam_in_train=True))
+    got = _stepped(engine, inputs, xd, yd)
+    out = {"reparam_digest": _digest(got["sd"])}
+    if rank == 0:
+        out["reparam"] = _errors(got, _stepped(engine, inputs, x, y))
+    del got
+    for backbone in ("resnet50", "densenet121"):
+        engine = get_engine({"backbone": backbone, "use_attention": True,
+                             "loss_fn": "combo"}, device="cpu")
+        torch.manual_seed(0)
+        model = engine.build_model().double()
+        sd = {k: v.clone() for k, v in model.state_dict().items()}
+        out[backbone] = _forward_backward(engine, model, xd, yd)
+        if rank == 0:
+            model.load_state_dict(sd)
+            out[backbone + "_ref"] = _forward_backward(engine, model, x, y)
+        del model, sd
+    return out
+
+
 def main(argv) -> int:
     scenario, world, rank, tmp = argv[0], int(argv[1]), int(argv[2]), argv[3]
     torch.set_num_threads(1)
