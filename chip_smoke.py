@@ -215,7 +215,38 @@ it, or when any phase fails:
    ``reparam_in_train`` train step of
    resnet_tiny in f32 and float64 on the card against the CPU's float64
    step (check (a)'s bars); a ``reparam {...}`` line;
-15. one JSON line ``{"kernels": [...]}`` (gate and upsample launches
+15. the data-parallel fused run (r), cuDNN deterministic, on (p)'s
+   groups (no new process): (r1) on (p1)'s NCCL mesh of one rank,
+   ``run_training_fused`` with (o1)'s flagship configuration (resnet34,
+   attention, 512², bf16, B=8, 20 training and 4 validation images, 3
+   epochs, the plateau scheduler and early stopping) against the same run
+   in one process: histories, decisions and the final and returned
+   weights equal bit for bit, a runner and graphs of its own, 4 gate
+   launches per replayed validation forward and warm-up call, a second
+   run of equal shapes replaying without a new capture; both runners'
+   replayed steps and the stepwise DP step alternated (CUDA events,
+   medians of 30); the no-attention flagship's DP run launching the
+   upsample from its replays as ``_fused_level`` predicts; (r1k) the
+   same DP run with its one-rank group kept in every step
+   (``one_rank_sync``), so that the graphs capture the BatchNorms'
+   all-reduces, the gathers and the gradients' all-reduce: equal to the
+   same steps called eagerly bit for bit, a second run calling no
+   collective from Python, its first run's peak memory, its replayed step
+   timed with the others and profiled beside the plain DP replay (the
+   five costliest kernels of each); (r1c) the collective helpers (``all_reduce_`` on the gradients' 97,764,916
+   bytes, ``all_reduce_sum`` on the BatchNorms' sums, ``broadcast_``,
+   ``all_gather_rows`` of a logits batch) captured in one CUDA graph and
+   replayed twice on new inputs, equal to the eager calls bit for bit
+   (at world 1 the in-place reductions cannot be told apart from the
+   identity; the gather's output can). (r2) on (p2)'s two gloo ranks: ``run_training_fused`` on the gloo mesh
+   with CUDA tensors must refuse to capture; the eager DP runner
+   (``graphs=False``, f32, 12 training and 4 validation images, 2
+   epochs) against the stepwise DP epochs by (p2)'s bars (decisions
+   equal, losses within 1e-4 of themselves, parameters within 1e-3 of the
+   largest), 4 gate launches per validation forward on each rank, both
+   ranks' histories and weights equal bit for bit. A ``fused_dp {...}``
+   line;
+16. one JSON line ``{"kernels": [...]}`` (gate and upsample launches
    count every path above, the replays of the fused runs' graphs and both
    world-2 ranks included; their sums over the other encoders' shapes
    under ``encoders``), then the card line, then the result line
@@ -227,6 +258,7 @@ statistics come from one batch of random images, then jittered.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import re
@@ -2993,8 +3025,7 @@ def _replay_ms(runner, x, y, steps: int) -> list:
     """CUDA-event ms of ``steps`` replays of the full training step on one
     resident batch, enqueued back to back, after one untimed replay (the
     ``train`` line's method, ``_step_ms``)."""
-    runner.inputs["train_full"][0].copy_(x)
-    runner.inputs["train_full"][1].copy_(y)
+    runner.feed("train_full", x, y)
     runner.replay("train_full")
     torch.cuda.synchronize()
     spans = [(torch.cuda.Event(enable_timing=True),
@@ -3445,7 +3476,8 @@ def _md_grad_err(got: dict, want: dict) -> float:
 
 
 def _md_world_one(tmp, device, backbone, size) -> dict:
-    """(p1): NCCL, one rank, this process."""
+    """(p1), then (r1) and (r1c) on its group: NCCL, one rank, this
+    process."""
     from segtpu_torch.core.dist import create_mesh, init_process_group
     from segtpu_torch.data.loader import DeviceDataLoader
     from segtpu_torch.kernels import launch_counts, reset_launch_counts
@@ -3567,6 +3599,9 @@ def _md_world_one(tmp, device, backbone, size) -> dict:
               f"forward (B={b}) launched upsample2x_concat {ups} times; "
               f"_fused_level predicts {want}")
         res["launches"]["upsample2x_concat"] += ups
+
+        # (r1), (r1c) on this group
+        res["fused_dp_world1"] = _fdp_world_one(dp, device, backbone, size)
     finally:
         torch.distributed.destroy_process_group()
     return res
@@ -3574,8 +3609,9 @@ def _md_world_one(tmp, device, backbone, size) -> dict:
 
 def _md_rank(rank: int, tmp: str, device: str, size: int, slide: int
              ) -> int:
-    """(p2), (p4) and (q2) on rank ``rank`` of 2: gloo, both ranks on
-    ``device`` (cuda:0), flagship images of ``size``², a ``slide``² slide.
+    """(p2), (p4), (q2) and (r2) on rank ``rank`` of 2: gloo, both ranks
+    on ``device`` (cuda:0), flagship images of ``size``², a ``slide``²
+    slide.
     Writes its results and checks to ``<tmp>/md_<rank>.json``."""
     from segtpu_torch.core import hlo_profile
     from segtpu_torch.core.dist import (all_gather_rows, create_mesh,
@@ -3795,6 +3831,8 @@ def _md_rank(rank: int, tmp: str, device: str, size: int, slide: int
         del model
         torch.cuda.empty_cache()
         res["bands"] = _md_bands(rank, device, size, record)
+        torch.cuda.empty_cache()
+        res["fused_dp"] = _fdp_rank(mesh, device, size, record)
     finally:
         res["checks"] = checks
         with open(f"{tmp}/md_{rank}.json", "w") as f:
@@ -4062,6 +4100,521 @@ def _md_fold_placement(device, size=32) -> dict:
     return {"folds_placed_equal": same}
 
 
+# ------------------------------------ (r) the data-parallel fused run
+# (r1): (o1)'s flagship run (20 training images at B=8, 4 validation
+# images, 3 epochs, the plateau scheduler and early stopping) through
+# ``run_training_fused`` on (p1)'s NCCL mesh of one rank, against the same
+# run in one process: at world 1 the data-parallel step is the plain step
+# op for op (p1), so the two runs, cuDNN deterministic, agree bit for bit.
+# The replayed steps of both runners and the stepwise DP step alternated,
+# this many CUDA-event spans each.
+FDP_TIMED_STEPS = 30
+# (r2): on (p2)'s two gloo ranks, f32 (TF32 off), 12 training images at
+# B=8 (a full batch of 4 + 4 rows and a remainder of 2 + 2) and 4
+# validation images, (o1)'s scheduler and early stopping (2 epochs run):
+# the eager DP runner (``graphs=False``; gloo cannot be captured) against
+# the stepwise DP epochs, by (p2)'s bars: decisions equal, per-epoch
+# losses within TOL_MD_LOSS of themselves, the final parameters within
+# TOL_MD_GRADS of the largest.
+FDP_W2_TRAIN, FDP_W2_VAL = 12, 4
+
+
+def _fdp_data(n_train, n_val, size, seed, device):
+    from segtpu_torch.train.loop import _materialize
+    imgs, masks = _blob_images(n_train + n_val, size,
+                               np.random.default_rng(seed))
+    return (*_materialize(imgs[:n_train], masks[:n_train], device=device),
+            *_materialize(imgs[n_train:], masks[n_train:], device=device))
+
+
+def _fdp_run(engine, data, config, device, **kw):
+    """``run_training_fused`` from seed ``SEED``'s weights with (o1)'s
+    schedule; (result, host s, (peak GiB, GiB allocated before it: the
+    runners already cached hold their graphs' pools), launch counts)."""
+    from segtpu_torch.kernels import launch_counts, reset_launch_counts
+    from segtpu_torch.train.fused_run import run_training_fused
+    state = engine.init_state(torch.Generator().manual_seed(SEED), 1e-3,
+                              1e-5)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() / 2 ** 30
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = run_training_fused(
+        engine, state, *data, batch_size=config["batch_size"],
+        num_epochs=config["num_epochs"], lr0=1e-3,
+        generator=torch.Generator(device).manual_seed(SEED + 1),
+        scheduler_params=dict(factor=0.5, min_lr=0.0, **FUSED_PLATEAU),
+        es_patience=config["early_stopping_patience"],
+        es_min_delta=config["early_stopping_min_delta"], **kw)
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0,
+            (torch.cuda.max_memory_allocated() / 2 ** 30, resident),
+            launch_counts())
+
+
+def _same_run(a, b) -> bool:
+    """Histories, decisions and the final and returned weights equal bit
+    for bit."""
+    same = all(a[k] == b[k] for k in (
+        "train_history", "val_history", "lr_history", "best_epoch",
+        "epochs_ran", "best_found"))
+    for key in ("state", "final_state"):
+        da, db = (r[key].model.state_dict() for r in (a, b))
+        same = same and all(torch.equal(da[k], db[k]) for k in da)
+    return same
+
+
+def _alternated_ms(fns: dict, turns: int) -> dict:
+    """{name: (median, p10, p90)} of CUDA-event spans of each call, the
+    calls alternated turn by turn, after one untimed call each."""
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    spans = {k: [] for k in fns}
+    for _ in range(turns):
+        for k, fn in fns.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            spans[k].append((start, end))
+    torch.cuda.synchronize()
+    out = {}
+    for k, ev in spans.items():
+        ms = [a.elapsed_time(b) for a, b in ev]
+        q = statistics.quantiles(ms, n=10)
+        out[k] = (statistics.median(ms), q[0], q[-1])
+    return out
+
+
+def _fdp_collectives(engine, group, device) -> dict:
+    """(r1c): the port's collective helpers captured in one CUDA graph on
+    the NCCL group of one rank: ``all_reduce_`` on a flat buffer of the
+    flagship's gradients, ``all_reduce_sum`` on its BatchNorms' per-channel
+    sums, ``broadcast_`` and ``all_gather_rows`` on a logits batch;
+    replayed twice on new inputs against the eager calls, bit for bit.
+    At world 1 every reduction is the identity: ``all_reduce_``,
+    ``all_reduce_sum`` and ``broadcast_`` leave their inputs as they were,
+    so an empty graph would pass their comparison too, and only
+    ``all_gather_rows``'s output (a tensor of the graph's own) shows that
+    a collective was captured and replayed. (r1k) captures them in whole
+    training steps; neither shows that they sum across cards (NCCL
+    refuses two ranks on one card; A25)."""
+    from segtpu_torch.core.dist import (all_gather_rows, all_reduce_,
+                                        all_reduce_sum, broadcast_)
+    from segtpu_torch.train.fused_run import WARMUP_CALLS
+    model = engine.build_model()
+    grad_n = sum(p.numel() for p in model.parameters())
+    bn_n = 2 * sum(m.num_features for m in model.modules()
+                   if type(m).__name__ == "BatchNorm2d")
+    b = TRAIN_CONFIG["batch_size"]
+    shapes = [(grad_n,), (bn_n,), (grad_n,), (b, 1, SIZE, SIZE)]
+    del model
+    gen = torch.Generator(device).manual_seed(SEED + 50)
+    fresh = lambda: [torch.randn(sh, generator=gen, device=device)
+                     for sh in shapes]
+
+    def calls(a, s, c, d):
+        return (all_reduce_(a, group), all_reduce_sum(s, group),
+                broadcast_(c, 0, group), all_gather_rows(d, b, group))
+
+    static = fresh()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(WARMUP_CALLS):
+            calls(*static)
+    torch.cuda.current_stream().wait_stream(side)
+    t0 = time.perf_counter()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = calls(*static)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    equal = []
+    for _ in range(2):
+        new = fresh()
+        for t, v in zip(static, new):
+            t.copy_(v)
+        graph.replay()
+        want = calls(*[v.clone() for v in new])
+        torch.cuda.synchronize()
+        equal.append(all(torch.equal(g, w) for g, w in zip(outs, want)))
+    events = _kernel_events(graph.replay)
+    nccl = {k: n for k, n in events.items() if "nccl" in k.lower()}
+    ms = _alternated_ms({"replayed": graph.replay,
+                         "eager": lambda: calls(*static)}, 10)
+    check(all(equal),
+          f"fused_dp (r1c): all_reduce_ of {4 * grad_n} bytes of gradients, "
+          f"all_reduce_sum of {bn_n} BatchNorm sums, broadcast_ and "
+          f"all_gather_rows of a B={b} logits batch captured in one CUDA "
+          f"graph on NCCL (world 1) and replayed twice on new inputs: equal "
+          f"to the eager calls bit for bit {equal} (at world 1 the in-place "
+          f"reductions cannot be told apart from the identity; the gather's "
+          f"output can)")
+    return dict(grad_bytes=4 * grad_n, bn_sums=bn_n, replays_equal=equal,
+                capture_s=capture_s, nccl_kernels_per_replay=nccl,
+                ms={k: v[0] for k, v in ms.items()})
+
+
+@contextlib.contextmanager
+def one_rank_sync(group, calls: dict):
+    """Within it, a batch sharded over a mesh of one rank keeps a
+    ``StepSync`` over ``group``: ``local_batch`` drops one-rank groups, so
+    that the world-1 data-parallel step is the plain step and issues no
+    collective. The engine's steps then sum the BatchNorms' statistics,
+    gather the logits and masks and all-reduce the gradients laid end to
+    end, each over the one rank, as a step of a larger world does.
+    ``calls`` counts the ``torch.distributed`` collectives they call."""
+    from unittest import mock
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from segtpu_torch.parallel.data_parallel import StepSync
+    from segtpu_torch.train import engine as engine_module
+    local_batch = engine_module.local_batch
+
+    def kept(images, masks):
+        x, y, sync = local_batch(images, masks)
+        if sync is None and isinstance(images, DTensor):
+            sync = StepSync(group, images.shape[images.ndim - 4])
+        return x, y, sync
+
+    def counted(name):
+        fn = getattr(dist, name)
+
+        def call(*a, **kw):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*a, **kw)
+        return call
+
+    with mock.patch.object(engine_module, "local_batch", kept), \
+            mock.patch.object(dist, "all_reduce", counted("all_reduce")), \
+            mock.patch.object(dist, "all_gather", counted("all_gather")):
+        yield
+
+
+def _fdp_kept_sync(dp, engine, data, config, device, one) -> tuple:
+    """(r1k): (r1)'s DP run with the one-rank group kept in every step
+    (``one_rank_sync``), so that the runner's graphs capture the
+    BatchNorms' all-reduces, the logits' and masks' gathers and the
+    all-reduce of the gradients' 97,764,916 bytes on NCCL. The captured
+    run against the same runner's steps called eagerly, bit for bit; a
+    second run replays with no collective called from Python; the first
+    run's peak memory (the graphs' pool holds the flat gradient buffer).
+    At world 1 each sum is the identity and each gather a copy: this
+    shows the steps' collectives captured and replayed, not the sums
+    (A25). (runner, results, launch counts)."""
+    from segtpu_torch.data.loader import DeviceDataLoader
+    from segtpu_torch.kernels import launch_counts, reset_launch_counts
+    from segtpu_torch.train import fused_run
+    group, b = dp.mesh.get_group(0), config["batch_size"]
+    # a runner of its own: its key cannot tell the kept group's steps
+    # from the plain ones
+    fused_run.RUNNERS.clear()
+    first_calls, again_calls, eager_calls = {}, {}, {}
+    with one_rank_sync(group, first_calls):
+        cap, cap_s, cap_gib, counts = _fdp_run(engine, data, config, device,
+                                               mesh=dp.mesh)
+    runner = _last_runner()
+    with one_rank_sync(group, again_calls):
+        again, _, _, again_counts = _fdp_run(engine, data, config, device,
+                                             mesh=dp.mesh)
+    ti, tm, vi, vm = data
+    state = engine.init_state(torch.Generator().manual_seed(SEED), 1e-3,
+                              1e-5)
+    eager_runner = fused_run.FusedRunner(
+        engine, state, ti.shape[0], vi.shape[0], graphs=False,
+        placement=fused_run.Placement(dp.mesh))
+    reset_launch_counts()
+    with one_rank_sync(group, eager_calls):
+        eager = eager_runner.run(
+            state, DeviceDataLoader(ti, tm, b, shuffle=True),
+            DeviceDataLoader(vi, vm, b, shuffle=False),
+            torch.Generator(device).manual_seed(SEED + 1),
+            config["num_epochs"], 1e-3,
+            dict(factor=0.5, min_lr=0.0, **FUSED_PLATEAU),
+            config["early_stopping_patience"],
+            config["early_stopping_min_delta"])
+    torch.cuda.synchronize()
+    eager_counts = launch_counts()
+    same_eager = _same_run(cap, eager)
+    same_again = _same_run(again, cap)
+    check(runner.placement is not None and runner.stats["captures"] == 1
+          and runner.stats["runs"] == 2
+          and first_calls.get("all_reduce", 0) > 0
+          and first_calls.get("all_gather", 0) > 0 and not again_calls
+          and same_again and same_eager,
+          f"fused_dp (r1k): the DP fused run with its one-rank group kept in "
+          f"every step: collectives called while it warmed up and captured "
+          f"{first_calls}, by the eager runner {eager_calls}, by its second "
+          f"run (replays only) {again_calls or 'none'}; {runner.stats['captures']} "
+          f"capture in {runner.stats['runs']} runs; the second run equal "
+          f"{same_again}; the captured run equal to the same steps called "
+          f"eagerly bit for bit: {same_eager}")
+    perr, serr = _md_state_err(cap["final_state"].model.state_dict(),
+                               one["final_state"].model.state_dict())
+    loss_err = max(abs(a["loss"] - w["loss"]) / abs(w["loss"])
+                   for key in ("train_history", "val_history")
+                   for a, w in zip(cap[key], one[key]))
+    grad_bytes = sum(p.numel() * p.element_size()
+                     for p in runner.model.parameters())
+    res = dict(
+        calls_first_run=first_calls, calls_eager_run=eager_calls,
+        calls_second_run=again_calls, equal_to_eager=same_eager,
+        capture_s=runner.stats["capture_s"], fit_s_first=cap_s,
+        peak_gib_first=cap_gib[0], resident_gib_before=cap_gib[1],
+        flat_gradient_bytes=grad_bytes,
+        # information, not a check: the global-batch BatchNorm's formula
+        # (E[x²] − E[x]²) parts from cuDNN's by rounding, and bf16 runs
+        # that part by an ulp part by far more within two epochs
+        against_one_process=dict(
+            decisions_equal=all(cap[k] == one[k] for k in (
+                "epochs_ran", "lr_history", "best_epoch")),
+            loss_rel_err=loss_err, param_err=perr, stat_err=serr))
+    launches = {k: counts[k] + again_counts[k] + eager_counts[k]
+                for k in ("attention_gate", "upsample2x_concat")}
+    return runner, res, launches
+
+
+def _fdp_world_one(dp, device, backbone, size) -> dict:
+    """(r1) and (r1c): NCCL, one rank, this process."""
+    from segtpu_torch.data.preprocess import normalize_canonical
+    from segtpu_torch.train import fused_run
+    from segtpu_torch.train.engine import get_engine
+    config = dict(FUSED_CONFIG, img_size=(size, size), backbone=backbone,
+                  use_attention=True)
+    engine = get_engine(config, device=device)
+    b = config["batch_size"]
+    data = _fdp_data(FUSED_TRAIN, FUSED_VAL, size, SEED + 11, device)
+    fused_run.RUNNERS.clear()
+    one, one_s, one_gib, one_counts = _fdp_run(engine, data, config, device)
+    one_runner = _last_runner()
+    dp_out, dp_s, dp_gib, counts = _fdp_run(engine, data, config, device,
+                                            mesh=dp.mesh)
+    keys = fused_run.RUNNERS.keys()
+    runner = fused_run.RUNNERS[keys[-1]]
+    warm = dict(runner.stats["warmup_calls"])
+    epochs = dp_out["epochs_ran"]
+    val_forwards = -(-FUSED_VAL // b)
+    warm_val = warm.get("eval_full", 0) + warm.get("eval_rem", 0)
+    gate = counts["attention_gate"]
+    check(len(keys) == 2 and keys[0] != keys[1]
+          and runner.placement is not None and runner is not one_runner
+          and runner.stats["captures"] == 1
+          and gate == 4 * (epochs * val_forwards + warm_val),
+          f"fused_dp (r1): run_training_fused on an NCCL mesh of one rank "
+          f"captured its own graphs ({len(keys)} runners, keyed apart; "
+          f"{runner.stats['captures']} capture); attention_gate launched "
+          f"{gate} times ({epochs} epochs × {val_forwards} replayed "
+          f"validation forwards + {warm_val} warm-up calls, 4 each)")
+    same = _same_run(dp_out, one)
+    check(same and epochs == 2,
+          f"fused_dp (r1): the DP fused run (world 1) against the one-process "
+          f"fused run, cuDNN deterministic: histories, LR history "
+          f"{dp_out['lr_history']}, best epoch {dp_out['best_epoch']}, "
+          f"{epochs} epochs run (want 2), final and returned weights equal "
+          f"bit for bit: {same}")
+    again, again_s, _, again_counts = _fdp_run(engine, data, config, device,
+                                               mesh=dp.mesh)
+    check(runner.stats["captures"] == 1 and runner.stats["runs"] == 2
+          and len(fused_run.RUNNERS) == 2 and _same_run(again, dp_out)
+          and again_counts["attention_gate"]
+          == 4 * again["epochs_ran"] * val_forwards,
+          f"fused_dp (r1): a second DP run of equal shapes: "
+          f"{runner.stats['runs']} runs, {runner.stats['captures']} capture, "
+          f"the same results, attention_gate launched "
+          f"{again_counts['attention_gate']} times (4 per replayed "
+          f"validation forward)")
+    kept_runner, kept, kept_launches = _fdp_kept_sync(dp, engine, data,
+                                                      config, device, one)
+
+    # the step: the runners' replays and the stepwise DP step alternated
+    imgs, masks = _blob_images(b, size, np.random.default_rng(SEED + 20))
+    x = normalize_canonical(torch.from_numpy(imgs).to(device)).contiguous(
+        memory_format=torch.channels_last)
+    y = torch.from_numpy(masks).to(device)[:, None].float()
+    for r in (runner, one_runner, kept_runner):
+        r.feed("train_full", x, y)
+    st = dp.replicate(engine.init_state(
+        torch.Generator().manual_seed(SEED), 1e-3, 1e-5))
+    ms = _alternated_ms({
+        "replayed_dp": lambda: runner.replay("train_full"),
+        "replayed_one_process": lambda: one_runner.replay("train_full"),
+        "replayed_dp_kept_sync": lambda: kept_runner.replay("train_full"),
+        "stepwise_dp": lambda: engine.train_step(st, dp.shard(x),
+                                                 dp.shard(y))},
+        FDP_TIMED_STEPS)
+    del st
+    # where the kept group's step spends its time: its replays and the
+    # plain DP runner's under the profiler, the five costliest kernels
+    kept["profile"] = {
+        name: _profile_calls(lambda r=r: r.replay("train_full"), 3)
+        for name, r in (("kept_sync", kept_runner), ("dp", runner))}
+
+    # the no-attention flagship: its replayed validation forwards launch
+    # the upsample as ``_fused_level`` predicts
+    n_train, n_val = FUSED_UPSAMPLE_IMAGES
+    na_config = dict(config, use_attention=False, num_epochs=1)
+    na = get_engine(na_config, device=device)
+    na_out, _, _, na_counts = _fdp_run(
+        na, _fdp_data(n_train, n_val, size, SEED + 12, device), na_config,
+        device, mesh=dp.mesh)
+    na_runner = _last_runner()
+    nw, nr = na_runner.stats["warmup_calls"], na_runner.stats["replays"]
+    model = na_out["state"].model.eval()
+    per = {kind: len(decoder_shapes(model, nb, size)[1])
+           for kind, nb in (("eval_full", b), ("eval_rem", n_val % b))}
+    want = sum(n * (nr.get(kind, 0) + nw.get(kind, 0))
+               for kind, n in per.items())
+    ups = na_counts["upsample2x_concat"]
+    check(ups == want and min(per.values()) > 0
+          and na_runner.placement is not None,
+          f"fused_dp (r1): the no-attention flagship's DP fused run launched "
+          f"upsample2x_concat {ups} times from its replayed validation "
+          f"forwards; _fused_level predicts {want} ({per} per forward, "
+          f"replays {nr}, warm-up {nw})")
+
+    res = dict(
+        backbone=backbone, size=size, batch=b, train_images=FUSED_TRAIN,
+        val_images=FUSED_VAL, epochs=epochs, lr_history=dp_out["lr_history"],
+        best_epoch=dp_out["best_epoch"], equal_to_one_process=same,
+        step_ms_world1={k: v[0] for k, v in ms.items()},
+        step_ms_world1_p10_p90={k: [v[1], v[2]] for k, v in ms.items()},
+        dp_replay_over_one_process=ms["replayed_dp"][0]
+        / ms["replayed_one_process"][0],
+        timed_steps=FDP_TIMED_STEPS, capture_s=runner.stats["capture_s"],
+        capture_s_one_process=one_runner.stats["capture_s"],
+        peak_gib={"dp_first": dp_gib[0], "one_process_first": one_gib[0]},
+        resident_gib_before={"dp_first": dp_gib[1],
+                             "one_process_first": one_gib[1]},
+        fit_s={"dp_first": dp_s, "dp_cached": again_s,
+               "one_process_first": one_s},
+        warmup_calls=warm, upsample=dict(per_forward=per, launches=ups,
+                                         want=want),
+        kept_sync=kept,
+        launches={"attention_gate": one_counts["attention_gate"] + gate
+                  + again_counts["attention_gate"]
+                  + kept_launches["attention_gate"],
+                  "upsample2x_concat": ups
+                  + kept_launches["upsample2x_concat"]})
+    res["collectives"] = _fdp_collectives(engine, dp.mesh.get_group(0),
+                                          device)
+    fused_run.RUNNERS.clear()
+    return res
+
+
+def _stepwise_dp(engine, state, tr, va, gen, num_epochs, lr0, sched,
+                 es_patience, es_min_delta) -> dict:
+    """The stepwise loop's epochs (``train_model``'s scheduler, early
+    stopping and best epoch) over sharded loaders."""
+    from segtpu_torch.train.optim import EarlyStopping, ReduceLROnPlateau
+    plateau = ReduceLROnPlateau(lr0, mode="max", **sched)
+    stop = EarlyStopping(patience=es_patience, min_delta=es_min_delta)
+    out = {"train_history": [], "val_history": [], "lr_history": []}
+    lr, best_iou, best_epoch = lr0, 0.0, 0
+    for e in range(num_epochs):
+        state, tm, vm = engine.run_train_and_eval_epoch(state, tr, va, lr,
+                                                        gen)
+        out["train_history"].append(tm)
+        out["val_history"].append(vm)
+        lr = plateau.step(vm["iou"])
+        out["lr_history"].append(lr)
+        if vm["iou"] > best_iou:
+            best_iou, best_epoch = vm["iou"], e
+        if stop.step(vm["iou"]):
+            break
+    out.update(best_epoch=best_epoch, epochs_ran=len(out["val_history"]),
+               state=state)
+    return out
+
+
+def _fdp_rank(mesh, device, size, record) -> dict:
+    """(r2) on this rank of 2 (gloo, both ranks on the card)."""
+    import hashlib
+    from segtpu_torch.data.loader import DeviceDataLoader
+    from segtpu_torch.kernels import launch_counts, reset_launch_counts
+    from segtpu_torch.parallel import shard_loader
+    from segtpu_torch.train import fused_run
+    from segtpu_torch.train.engine import get_engine
+    config = dict(FUSED_CONFIG, img_size=(size, size), backbone="resnet34",
+                  use_attention=True, dtype="float32")
+    engine = get_engine(config, device=device)
+    b = config["batch_size"]
+    ti, tm, vi, vm = _fdp_data(FDP_W2_TRAIN, FDP_W2_VAL, size, SEED + 60,
+                               device)
+    res = {}
+    fused_run.RUNNERS.clear()
+    try:
+        _fdp_run(engine, (ti, tm, vi, vm), config, device, mesh=mesh)
+        refused = None
+    except RuntimeError as e:
+        refused = str(e)
+    record(refused is not None and "cannot capture" in refused
+           and len(fused_run.RUNNERS) == 0,
+           f"(r2) run_training_fused on the gloo mesh of 2 ranks with CUDA "
+           f"tensors refuses to capture: {refused!r}; "
+           f"{len(fused_run.RUNNERS)} runners cached")
+
+    sched = dict(factor=0.5, min_lr=0.0, **FUSED_PLATEAU)
+    args = (config["num_epochs"], 1e-3, sched,
+            config["early_stopping_patience"],
+            config["early_stopping_min_delta"])
+    fresh = lambda: engine.init_state(torch.Generator().manual_seed(SEED),
+                                      1e-3, 1e-5)
+    state = fresh()
+    runner = fused_run.FusedRunner(engine, state, FDP_W2_TRAIN, FDP_W2_VAL,
+                                   graphs=False,
+                                   placement=fused_run.Placement(mesh))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    eager = runner.run(state, DeviceDataLoader(ti, tm, b),
+                       DeviceDataLoader(vi, vm, b, shuffle=False),
+                       torch.Generator(device).manual_seed(SEED + 1), *args)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    gate = launch_counts()["attention_gate"]
+    step = _stepwise_dp(
+        engine, fresh(), shard_loader(DeviceDataLoader(ti, tm, b), mesh),
+        shard_loader(DeviceDataLoader(vi, vm, b, shuffle=False), mesh),
+        torch.Generator(device).manual_seed(SEED + 1), *args)
+    gate_all = launch_counts()["attention_gate"]
+    epochs = eager["epochs_ran"]
+    val_forwards = -(-FDP_W2_VAL // b)
+    decisions = all(eager[k] == step[k] for k in ("epochs_ran", "lr_history",
+                                                  "best_epoch"))
+    loss_err = max(abs(a["loss"] - w["loss"]) / abs(w["loss"])
+                   for key in ("train_history", "val_history")
+                   for a, w in zip(eager[key], step[key]))
+    perr, _ = _md_state_err(eager["final_state"].model.state_dict(),
+                            step["state"].model.state_dict())
+    record(decisions and loss_err <= TOL_MD_LOSS and perr <= TOL_MD_GRADS,
+           f"(r2) the eager DP fused runner (f32, gloo, world 2) against the "
+           f"stepwise DP epochs: {epochs} epochs, LR history "
+           f"{eager['lr_history']} / {step['lr_history']}, best epoch "
+           f"{eager['best_epoch']} / {step['best_epoch']} equal {decisions}; "
+           f"losses within {loss_err:.3g} of themselves (tol {TOL_MD_LOSS}), "
+           f"final parameters within {perr:.3g} of the largest (tol "
+           f"{TOL_MD_GRADS})")
+    record(gate == 4 * epochs * val_forwards,
+           f"(r2) the eager DP runner launched attention_gate {gate} times on "
+           f"this rank ({epochs} epochs × {val_forwards} validation forwards, "
+           f"want 4 each)")
+    sd = eager["final_state"].model.state_dict()
+    digest = hashlib.sha1(b"".join(
+        v.detach().contiguous().cpu().numpy().tobytes()
+        for v in sd.values())).hexdigest()
+    res.update(
+        eager_s=eager_s, eager_s_per_epoch=eager_s / epochs, epochs=epochs,
+        loss_rel_err=loss_err, param_err=perr,
+        histories={k: eager[k] for k in ("train_history", "val_history",
+                                         "lr_history", "best_epoch")},
+        weights_sha1=digest, gate_launches=gate_all)
+    return res
+
+
 def phase_multidevice(device="cuda", backbone="resnet34", size=SIZE,
                       slide=MD_SLIDE) -> dict:
     """(p1)-(p4) of the module docstring and the ``multidevice`` line."""
@@ -4097,6 +4650,30 @@ def phase_multidevice(device="cuda", backbone="resnet34", size=SIZE,
     res["launches"]["attention_gate"] += sum(
         v.get("gate_launches", 0) for v in bands.values())
     print("spatial_train " + json.dumps(res["spatial_train"]), flush=True)
+
+    # (r): world 1 from this process, world 2 from the ranks
+    fdp = res.pop("fused_dp_world1")
+    w2 = {r: ranks[r].get("fused_dp", {}) for r in sorted(ranks)}
+    hist = [w2[r].get("histories") for r in w2]
+    sha = [w2[r].get("weights_sha1") for r in w2]
+    check(len(w2) == 2 and hist[0] is not None and hist[0] == hist[1]
+          and sha[0] == sha[1],
+          f"fused_dp (r2): both ranks' histories and final weights equal bit "
+          f"for bit (weights sha1 {sha})")
+    r0 = w2.get(0, {})
+    fdp["world2"] = {k: r0.get(k) for k in (
+        "eager_s", "eager_s_per_epoch", "epochs", "loss_rel_err",
+        "param_err")}
+    fdp["world2"]["gate_launches_per_rank"] = [
+        w2[r].get("gate_launches") for r in w2]
+    for k, n in fdp["launches"].items():
+        res["launches"][k] += n
+    res["launches"]["attention_gate"] += sum(
+        w2[r].get("gate_launches", 0) for r in w2)
+    fdp["launches"]["attention_gate"] += sum(
+        w2[r].get("gate_launches", 0) for r in w2)
+    res["fused_dp"] = fdp
+    print("fused_dp " + json.dumps(fdp), flush=True)
     return res
 
 

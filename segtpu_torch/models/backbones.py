@@ -264,7 +264,9 @@ class GrayStem(Conv2d):
     over ``pixel_unshuffle(x, 2)`` with padding (2, 1) on each axis: the
     same function up to the order of the sums (the JAX package's
     ``stem_s2d``; the JAX package pads the phases to 8 channels, its TPU's
-    best, which is not done here). Otherwise, the plain conv."""
+    best, which is not done here). Otherwise, and on an empty batch (an
+    empty rank's block, which torch's ``pixel_unshuffle`` hands back
+    unshuffled), the plain conv."""
 
     def __init__(self, *, s2d: bool = True, reparam_in_train: bool = False,
                  device="cuda", dtype=torch.float32):
@@ -274,7 +276,7 @@ class GrayStem(Conv2d):
 
     def forward(self, x):
         if not (self.s2d and (not self.training or self.reparam_in_train)
-                and x.shape[1] == 1 and x.shape[2] % 2 == 0
+                and x.shape[0] and x.shape[1] == 1 and x.shape[2] % 2 == 0
                 and x.shape[3] % 2 == 0):
             return super().forward(x)
         xs = F.pixel_unshuffle(x, 2).contiguous(

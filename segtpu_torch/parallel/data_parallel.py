@@ -55,14 +55,10 @@ from segtpu_torch.models.backbones import synced_batch_stats
 from segtpu_torch.parallel.spatial import Bands, on_bands
 
 
-def shard_batch(arr: torch.Tensor, mesh: DeviceMesh, axis: str = "data",
-                dim: int = 0, spatial_axis: Optional[str] = None) -> DTensor:
-    """The global batch ``arr`` (the same on every rank) as a ``DTensor``
-    holding this rank's block of rows along ``dim`` (0, or 1 for the
-    stacked micro-batches of ``train_step_accum``), sharded over
-    ``axis``; with ``spatial_axis``, also this rank's band of the images'
-    rows (dim ``dim + 2``) over that axis: ``distribute_tensor``'s
-    blocks, with no communication."""
+def local_block(arr: torch.Tensor, mesh: DeviceMesh, axis: str = "data",
+                dim: int = 0, spatial_axis: Optional[str] = None):
+    """(this rank's block of the global batch ``arr``, a view, and the
+    placements of ``shard_batch``)."""
     local, placements = arr, []
     for name in mesh.mesh_dim_names:
         d = dim if name == axis else dim + 2 if name == spatial_axis \
@@ -74,6 +70,18 @@ def shard_batch(arr: torch.Tensor, mesh: DeviceMesh, axis: str = "data",
         rows = process_rows(arr.shape[d], group.size(), group.rank())
         local = local.narrow(d, rows.start, rows.stop - rows.start)
         placements.append(Shard(d))
+    return local, placements
+
+
+def shard_batch(arr: torch.Tensor, mesh: DeviceMesh, axis: str = "data",
+                dim: int = 0, spatial_axis: Optional[str] = None) -> DTensor:
+    """The global batch ``arr`` (the same on every rank) as a ``DTensor``
+    holding this rank's block of rows along ``dim`` (0, or 1 for the
+    stacked micro-batches of ``train_step_accum``), sharded over
+    ``axis``; with ``spatial_axis``, also this rank's band of the images'
+    rows (dim ``dim + 2``) over that axis: ``distribute_tensor``'s
+    blocks, with no communication."""
+    local, placements = local_block(arr, mesh, axis, dim, spatial_axis)
     return DTensor.from_local(local, mesh, placements, run_check=False,
                               shape=arr.shape, stride=arr.stride())
 

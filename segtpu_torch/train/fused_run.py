@@ -31,12 +31,13 @@ one fetch at the end.
 
 Runners are kept in an ``LRUCache`` keyed on everything their graphs
 hold: the model's configuration and routing, the loss, the optimizer's
-rule and hyperparameters, the compute dtype, remat, and the training and
-validation shapes. Each run loads its whole starting state into the
-runner (weights, BatchNorm statistics and counts, optimizer moments and
-step count, LR, scheduler and early-stopping settings and state) and
-copies its results out, so a second run of equal shapes (the next fold of
-a CV) replays the graphs that the first one captured.
+rule and hyperparameters, the compute and parameter dtypes, remat, the
+training and validation shapes and the placement. Each run loads its
+whole starting state into the runner (weights, BatchNorm statistics and
+counts, optimizer moments and step count, LR, scheduler and
+early-stopping settings and state) and copies its results out, so a
+second run of equal shapes (the next fold of a CV) replays the graphs
+that the first one captured.
 
 On CUDA, a runner's first run calls each step twice on a side stream
 before capturing it (the kernels' first call builds and loads them there,
@@ -45,6 +46,29 @@ loads the run's state again. A failed capture or replay raises; nothing
 runs the eager loop in its place. On the CPU (``device="cpu"``) the
 runner calls the same step functions eagerly with the same bookkeeping,
 and its numbers are the stepwise loop's, bit for bit.
+
+On a mesh (``mesh=``, or the mesh entered with ``with mesh:``) the run
+is data-parallel with GSPMD's semantics, as the JAX module's is when
+its arrays are sharded: it equals the one-process run on the same
+global batches. Every rank holds the whole training and validation set
+and a replica of the state (``parallel.replicate_state``), draws the
+same permutation from its equally seeded generator, and copies its
+block of each batch (``process_rows``'s ceil partition: the last ranks'
+may be short or empty) into the static input of its graph. Each static
+input is wrapped once, before capture, in the ``DTensor`` that
+``parallel.shard_batch`` makes (no communication), so the captured
+steps take the data-parallel path of the engine: the BatchNorms' sums
+over the ranks, the logits and masks gathered for the loss and the
+metrics, the gradients summed before the update
+(``parallel/data_parallel.py``). With ``spatial_axis`` each image's
+rows are cut into bands over that axis too, and the halo rows'
+point-to-point exchanges join the captured step. The collectives are
+captured into the graphs with the rest, which NCCL allows; gloo stages
+a CUDA tensor through host memory (``core/dist.py``), which a graph
+cannot capture, so a CUDA runner on a gloo mesh raises before it
+captures anything (``graphs=False`` runs the same steps eagerly there).
+The metrics are the global batch's on every rank, so every rank reads
+the same early-stopping flag: no collective is added for it.
 """
 
 from __future__ import annotations
@@ -55,11 +79,15 @@ import time
 from typing import Dict, List, Optional
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from segtpu_torch.core.caching import LRUCache
+from segtpu_torch.core.dist import current_mesh
 from segtpu_torch.data.loader import DeviceDataLoader
 from segtpu_torch.kernels import CountedGraph
 from segtpu_torch.models.attention import invalidate_folds
+from segtpu_torch.parallel.data_parallel import local_block
 from segtpu_torch.train.engine import METRIC_KEYS, TrainEngine, TrainState
 from segtpu_torch.train.optim import set_learning_rate
 
@@ -87,8 +115,56 @@ def _fn_key(fn):
     return key
 
 
+class Placement:
+    """Where a runner's batches go: this rank's blocks of their rows over
+    the mesh axis ``axis``, and with ``spatial_axis`` its band of their
+    images' rows over that axis."""
+
+    def __init__(self, mesh, axis: str = "data",
+                 spatial_axis: Optional[str] = None):
+        names = mesh.mesh_dim_names
+        for a in (axis, spatial_axis):
+            if a is not None and a not in names:
+                raise ValueError(f"fused run: no axis {a!r} in the mesh "
+                                 f"{names}")
+        self.mesh, self.axis, self.spatial_axis = mesh, axis, spatial_axis
+        self.groups = tuple(mesh.get_group(n) for n in names)
+        self.backends = tuple(sorted({dist.get_backend(g)
+                                      for g in self.groups}))
+
+    def key(self) -> tuple:
+        """The mesh's shape and axis names, the axes, this rank, the
+        backends and the process groups themselves: a runner of one
+        placement is never replayed under another, nor under none, nor
+        under a mesh made anew at the same shape (a runner's graphs hold
+        its groups' communicators). The runner holds its placement's
+        groups, so their ids are not reused while it is cached."""
+        return (tuple(self.mesh.shape), self.mesh.mesh_dim_names,
+                self.axis, self.spatial_axis, dist.get_rank(),
+                self.backends, tuple(id(g) for g in self.groups))
+
+    def block(self, t: torch.Tensor):
+        """(this rank's block of the global batch ``t``, a view, and its
+        placements)."""
+        return local_block(t, self.mesh, self.axis,
+                           spatial_axis=self.spatial_axis)
+
+    def static(self, t: torch.Tensor) -> DTensor:
+        """A static copy of this rank's block of ``t`` as a ``DTensor``
+        of ``t``'s global shape (``shard_batch``'s, over the copy)."""
+        local, placements = self.block(t)
+        return DTensor.from_local(local.clone(), self.mesh, placements,
+                                  run_check=False, shape=t.shape,
+                                  stride=t.stride())
+
+
+def _param_dtype(state: TrainState) -> torch.dtype:
+    return next(state.model.parameters()).dtype
+
+
 def runner_key(engine: TrainEngine, state: TrainState, train_images,
-               val_images, batch_size: int) -> tuple:
+               val_images, batch_size: int,
+               placement: Optional[Placement] = None) -> tuple:
     """Everything that shapes a runner's graphs."""
     (group,) = state.optimizer.param_groups
     opt = tuple(sorted((k, v) for k, v in group.items()
@@ -97,21 +173,24 @@ def runner_key(engine: TrainEngine, state: TrainState, train_images,
                             if k != "final_bias_prior"))
     return (model_kw, tuple(getattr(state.model, a) for a in ROUTING),
             _fn_key(engine.loss_fn), engine.multiclass, engine.remat,
-            engine.compute_dtype, str(engine.device),
+            engine.compute_dtype, _param_dtype(state), str(engine.device),
             state.optimizer.rule, opt, int(batch_size),
             tuple(train_images.shape), train_images.stride(),
             train_images.dtype, tuple(val_images.shape),
-            val_images.stride(), val_images.dtype)
+            val_images.stride(), val_images.dtype,
+            None if placement is None else placement.key())
 
 
 class FusedRunner:
     """The model, optimizer, device-side bookkeeping and (on CUDA) the
     captured graphs of fused runs of one shape; see the module
-    docstring. ``stats`` counts runs, captures, replays per step, warm-up
-    calls and host reads."""
+    docstring. ``placement`` (a ``Placement``) makes its runs
+    data-parallel. ``stats`` counts runs, captures, replays per step,
+    warm-up calls and host reads."""
 
     def __init__(self, engine: TrainEngine, state: TrainState, n: int,
-                 n_val: int, graphs: Optional[bool] = None):
+                 n_val: int, graphs: Optional[bool] = None,
+                 placement: Optional[Placement] = None):
         self.engine = engine
         self.device = engine.device
         # graphs=False calls the steps eagerly on the card too: the
@@ -120,12 +199,22 @@ class FusedRunner:
             else bool(graphs)
         if self.graphs_on and self.device.type != "cuda":
             raise ValueError("FusedRunner: CUDA graphs need a CUDA device")
+        self.placement = placement
+        if self.graphs_on and placement is not None \
+                and placement.backends != ("nccl",):
+            raise RuntimeError(
+                f"FusedRunner: a CUDA graph cannot capture the collectives "
+                f"of a {'/'.join(placement.backends)} mesh: gloo stages CUDA "
+                f"tensors through host memory (core/dist.py). Use an NCCL "
+                f"process group, or graphs=False to run the same steps "
+                f"eagerly")
         self.n, self.n_val = int(n), int(n_val)
-        self.model = engine.build_model()
+        # in the state's parameter dtype (a float64 state trains in
+        # float64, as it does stepwise)
+        self.model = engine.build_model().to(_param_dtype(state))
         for a in ROUTING:
             setattr(self.model, a, getattr(state.model, a))
-        self.params = list(self.model.parameters())
-        self.opt = state.optimizer.like(self.params)
+        self.opt = state.optimizer.like(self.model.parameters())
         self.sd = self.model.state_dict()
         self.best = {k: torch.empty_like(v) for k, v in self.sd.items()}
         dev = self.device
@@ -159,6 +248,7 @@ class FusedRunner:
         self.e_count = torch.zeros((), **i64)
         self.stopped = torch.zeros((), **flag)
         # static inputs by kind, made from the first batches of each kind
+        # (under a placement ``DTensor``s over this rank's blocks)
         self.inputs: Dict[str, tuple] = {}
         self.graphs: Dict[str, CountedGraph] = {}
         self.stats = dict(runs=0, captures=0, capture_s=0.0, host_reads=0,
@@ -167,15 +257,12 @@ class FusedRunner:
     # --------------------------------------------------------- the steps
 
     def _train(self, kind: str) -> None:
-        """The engine's training step (``TrainEngine._train_step_vec``)
-        with this runner's optimizer, its metrics added to the totals."""
+        """The engine's training step with this runner's optimizer, its
+        metrics added to the totals (weighted by the global batch's
+        rows)."""
         x, y = self.inputs[kind]
-        self.model.train()
-        for p in self.params:
-            p.grad = None
-        vec = self.engine._micro_step(self.model, x, y, 1.0)
-        self.opt.step()
-        self.ttot += vec * x.shape[0]
+        self.ttot += self.engine._train_step_vec(
+            TrainState(self.model, self.opt), x, y) * x.shape[0]
 
     def _eval(self, kind: str) -> None:
         x, y = self.inputs[kind]
@@ -228,6 +315,16 @@ class FusedRunner:
         else:
             self._eval(kind)
 
+    def feed(self, kind: str, images: torch.Tensor,
+             masks: torch.Tensor) -> None:
+        """A global batch into the static input of step ``kind`` (this
+        rank's block of it under a placement)."""
+        for static, t in zip(self.inputs[kind], (images, masks)):
+            if self.placement is None:
+                static.copy_(t)
+            else:      # a view of the static copy
+                static.to_local().copy_(self.placement.block(t)[0])
+
     def replay(self, kind: str) -> None:
         """Run step ``kind`` on its static input: its graph's replay on
         CUDA, the step itself on the CPU (or with ``graphs=False``)."""
@@ -243,8 +340,11 @@ class FusedRunner:
         """Static inputs shaped and strided as the first batch of each
         kind (as the stepwise loop's batches, so each op sees the layout
         it sees there); on CUDA, warm-up calls and the captures."""
+        static = torch.clone if self.placement is None \
+            else self.placement.static
         for x, y, kind in batches:
-            self.inputs.setdefault(kind, (x.clone(), y.clone()))
+            if kind not in self.inputs:
+                self.inputs[kind] = (static(x), static(y))
         if not self.graphs_on:
             return
         t0 = time.perf_counter()
@@ -325,8 +425,7 @@ class FusedRunner:
                 self._prepare(batches + val)
                 self.load(*start)
             for x, y, kind in batches + val:
-                self.inputs[kind][0].copy_(x)
-                self.inputs[kind][1].copy_(y)
+                self.feed(kind, x, y)
                 self.replay(kind)
             self.replay("book")
             th[e].copy_(self.trow)
@@ -393,13 +492,16 @@ class FusedRunner:
 
 
 def get_runner(engine: TrainEngine, state: TrainState, train_images,
-               val_images, batch_size: int) -> FusedRunner:
-    """The cached runner of this shape, or a new one (cached)."""
-    key = runner_key(engine, state, train_images, val_images, batch_size)
+               val_images, batch_size: int,
+               placement: Optional[Placement] = None) -> FusedRunner:
+    """The cached runner of this shape and placement, or a new one
+    (cached)."""
+    key = runner_key(engine, state, train_images, val_images, batch_size,
+                     placement)
     runner = RUNNERS.get(key)
     if runner is None:
         runner = FusedRunner(engine, state, train_images.shape[0],
-                             val_images.shape[0])
+                             val_images.shape[0], placement=placement)
         RUNNERS[key] = runner
     return runner
 
@@ -409,8 +511,9 @@ def run_training_fused(engine: TrainEngine, state: TrainState,
                        batch_size: int, num_epochs: int, lr0: float,
                        generator: torch.Generator,
                        scheduler_params: Optional[Dict] = None,
-                       es_patience: int = 7, es_min_delta: float = 0.001
-                       ) -> Dict:
+                       es_patience: int = 7, es_min_delta: float = 0.001,
+                       mesh=None, axis: str = "data",
+                       spatial_axis: Optional[str] = None) -> Dict:
     """Run a full training loop as replayed graphs.
 
     ``state``: the starting ``TrainState`` (its optimizer one of
@@ -419,6 +522,11 @@ def run_training_fused(engine: TrainEngine, state: TrainState,
     permutations (the stepwise loop's: ``train_model`` seeds it at
     seed + 1). ``scheduler_params``: None (constant LR) or dict(factor,
     patience, threshold, min_lr) — ReduceLROnPlateau mode='max' semantics.
+    ``mesh`` (default: the mesh entered with ``with mesh:``, if any): the
+    run is data-parallel over its axis ``axis`` (and with
+    ``spatial_axis`` on row bands over that axis); every rank passes the
+    whole set, the same ``state`` and an equally seeded ``generator``,
+    and gets the same results (module docstring).
 
     Returns dict: train_history/val_history (one dict of METRIC_KEYS per
     epoch run), lr_history, best_iou, best_found, best_epoch, epochs_ran,
@@ -428,13 +536,10 @@ def run_training_fused(engine: TrainEngine, state: TrainState,
     best_model_state (a ``state_dict`` copy of the best weights, or
     None).
     """
-    if (torch.distributed.is_available() and torch.distributed.is_initialized()
-            and torch.distributed.get_world_size() > 1):
-        raise NotImplementedError(
-            "fused_run under a process group of more than one rank is not "
-            "ported: data-parallel fused run (ROADMAP A23); train with the "
-            "stepwise loop there")
-    runner = get_runner(engine, state, train_images, val_images, batch_size)
+    mesh = mesh if mesh is not None else current_mesh()
+    placement = None if mesh is None else Placement(mesh, axis, spatial_axis)
+    runner = get_runner(engine, state, train_images, val_images, batch_size,
+                        placement)
     return runner.run(
         state, DeviceDataLoader(train_images, train_masks, batch_size,
                                 shuffle=True),

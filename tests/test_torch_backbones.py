@@ -146,9 +146,7 @@ def test_encoders_give_the_reference_features_and_key_names():
                                  "features.transition4")) for k in keys)
 
 
-@pytest.mark.parametrize("backbone,use_attention", CASES, ids=IDS)
-def test_state_dict_round_trips_through_both_converters(backbone,
-                                                        use_attention):
+def _round_trip(backbone, use_attention):
     """port state_dict → segtpu's load_reference_checkpoint →
     state_dict_from_jax gives back every tensor bit for bit."""
     sd = _port_weights(backbone, use_attention)
@@ -177,8 +175,7 @@ def _to_port_f64(params, stats, backbone, use_attention):
     return {k: hi[k].double() + lo[k].double() for k in hi}
 
 
-@pytest.mark.parametrize("backbone,use_attention", CASES, ids=IDS)
-def test_unet_eval_forward_matches_jax_in_f32(backbone, use_attention):
+def _eval_forward(backbone, use_attention):
     x, _ = _batch()
     jm = JaxUNet(backbone=backbone, use_attention=use_attention)
     want = np.asarray(jax.jit(lambda v, x: jm.apply(v, x, train=False))(
@@ -201,15 +198,16 @@ def _jax_train_f64(backbone, use_attention, x, y):
                 for t in (v["params"], v["batch_stats"]))
         loss_fn = jax_get_loss({"loss_fn": "combo"})
 
-        def loss_f(params):
-            logits, mut = jm.apply({"params": params, "batch_stats": s},
-                                   jnp.asarray(x, jnp.float64), train=True,
-                                   mutable=["batch_stats"])
-            return loss_fn(logits, jnp.asarray(y, jnp.float64)), (
-                logits, mut["batch_stats"])
+        # the statistics and the batch are arguments, not constants of
+        # the traced function: XLA compiles the step faster without them
+        def loss_f(params, stats, x, y):
+            logits, mut = jm.apply({"params": params, "batch_stats": stats},
+                                   x, train=True, mutable=["batch_stats"])
+            return loss_fn(logits, y), (logits, mut["batch_stats"])
 
         (loss, (logits, stats)), grads = jax.jit(jax.value_and_grad(
-            loss_f, has_aux=True))(p)
+            loss_f, has_aux=True))(p, s, jnp.asarray(x, jnp.float64),
+                                   jnp.asarray(y, jnp.float64))
         host = lambda t: jax.tree.map(np.asarray, t)
         return float(loss), np.asarray(logits), host(grads), host(stats)
 
@@ -232,16 +230,20 @@ def _check_train_mode(model, logits, want_logits, stats, backbone,
     assert n > 50
 
 
-# train mode for every case: the float64 train step below for one case of
-# each backbone, the float64 forward here for the other
+# train mode for every case: the float64 train step for one case of each
+# backbone, the float64 forward for the other
 STEP_CASES = [("resnet50", True), ("densenet121", False)]
 FORWARD_CASES = [c for c in CASES if c not in STEP_CASES]
 
 
-@pytest.mark.parametrize("backbone,use_attention", FORWARD_CASES,
-                         ids=[IDS[CASES.index(c)] for c in FORWARD_CASES])
-def test_unet_train_mode_forward_matches_jax_in_float64(backbone,
-                                                        use_attention):
+def cases(backbone, among=CASES):
+    """``among``'s cases of ``backbone`` with their ids, for
+    ``parametrize``."""
+    picked = [c for c in among if c[0] == backbone]
+    return dict(argvalues=picked, ids=[IDS[CASES.index(c)] for c in picked])
+
+
+def _train_mode_forward(backbone, use_attention):
     x, _ = _batch(size=S_TRAIN)
     v = _jax_variables(backbone, use_attention)
     with jax.enable_x64(True):
@@ -259,9 +261,7 @@ def test_unet_train_mode_forward_matches_jax_in_float64(backbone,
     _check_train_mode(model, got, want, stats, backbone, use_attention)
 
 
-@pytest.mark.parametrize("backbone,use_attention", STEP_CASES,
-                         ids=[IDS[CASES.index(c)] for c in STEP_CASES])
-def test_train_step_matches_jax_in_float64(backbone, use_attention):
+def _train_step(backbone, use_attention):
     """One float64 train step (combo loss): the loss, every gradient, the
     train-mode logits and the updated running statistics."""
     x, y = _batch(seed=4, size=S_TRAIN)
@@ -284,3 +284,29 @@ def test_train_step_matches_jax_in_float64(backbone, use_attention):
                                    msg=k)
     _check_train_mode(model, logits, jlogits, jstats, backbone,
                       use_attention)
+
+
+# resnet50's cases here, densenet121's in tests/test_torch_backbones_densenet.py
+# (one file a backbone, so that their compiles run on two test workers)
+@pytest.mark.parametrize("backbone,use_attention", **cases("resnet50"))
+def test_state_dict_round_trips_through_both_converters(backbone,
+                                                        use_attention):
+    _round_trip(backbone, use_attention)
+
+
+@pytest.mark.parametrize("backbone,use_attention", **cases("resnet50"))
+def test_unet_eval_forward_matches_jax_in_f32(backbone, use_attention):
+    _eval_forward(backbone, use_attention)
+
+
+@pytest.mark.parametrize("backbone,use_attention",
+                         **cases("resnet50", FORWARD_CASES))
+def test_unet_train_mode_forward_matches_jax_in_float64(backbone,
+                                                        use_attention):
+    _train_mode_forward(backbone, use_attention)
+
+
+@pytest.mark.parametrize("backbone,use_attention",
+                         **cases("resnet50", STEP_CASES))
+def test_train_step_matches_jax_in_float64(backbone, use_attention):
+    _train_step(backbone, use_attention)

@@ -27,7 +27,6 @@ from segtpu.kernels.fused_conv import (conv3x3_bn_relu_pallas,
                                        upsample2x_concat_xla)
 from segtpu.models.unet import UNetWithBackbone as JaxUNet
 from segtpu.models.unet import _DecoderBlock as JaxDecoderBlock
-from segtpu.models.unet import create_model_state
 from segtpu_torch.kernels import _build, launch_counts
 from segtpu_torch.kernels.fused_block import (BF16_TILES, F32_TILE,
                                               SMEM_LIMIT, conv_pair_bn_relu,
@@ -35,6 +34,7 @@ from segtpu_torch.kernels.fused_block import (BF16_TILES, F32_TILE,
 from segtpu_torch.kernels.fused_conv import conv3x3_bn_relu, upsample2x_concat
 from segtpu_torch.models.convert import conv_transpose_weight, state_dict_from_jax
 from segtpu_torch.models.unet import UNetWithBackbone
+from torch_jax_init import drawn_variables
 
 ATOL = 1e-4
 
@@ -142,9 +142,8 @@ def _randomized_state(seed):
     """The resnet_tiny no-attention JAX model's variables with BN running
     statistics, BN scales and biases drawn from a seeded generator, so the
     folds see non-trivial values."""
-    p, s = create_model_state(JaxUNet(backbone="resnet_tiny",
-                                      use_attention=False),
-                              jax.random.key(0), (1, 64, 64, 1))
+    p, s = drawn_variables(JaxUNet(backbone="resnet_tiny",
+                                   use_attention=False), 0, (1, 64, 64, 1))
     r = np.random.default_rng(seed)
 
     def stat(path, a):

@@ -25,7 +25,10 @@ def _random_variables(backbone, use_attention, seed=0):
     """JAX variables with every leaf drawn from a seeded generator, so a
     leaf mapped to the wrong place cannot go unnoticed."""
     m = JaxUNet(backbone=backbone, use_attention=use_attention)
-    p, s = create_model_state(m, jax.random.key(0), (1, 32, 32, 1))
+    # the variables' shapes alone (``create_model_state`` traced, not
+    # compiled): every leaf is drawn below
+    p, s = jax.eval_shape(
+        lambda k: create_model_state(m, k, (1, 32, 32, 1)), jax.random.key(0))
     r = np.random.default_rng(seed)
     draw = lambda a: r.uniform(0.5, 1.5, np.shape(a)).astype(np.float32)
     return jax.tree.map(draw, p), jax.tree.map(draw, s)

@@ -862,6 +862,179 @@ def test_halo_rows_over_one_nccl_rank_are_the_band_and_its_padding(
         assert torch.equal(x.grad, g[:, :, top:top + 8])
 
 
+def test_collectives_replay_from_a_cuda_graph_at_world_one(nccl_world_one):
+    """The port's collective helpers (``core/dist.py``) captured in one
+    CUDA graph on an NCCL group of one rank, after eager warm-up calls
+    that create the communicator, then replayed twice on new inputs:
+    each output equals the eager call's on the same inputs, bit for bit.
+    At world 1 the sums are the identity, so this holds the capture
+    itself: every helper enqueues on the capturing stream with no host
+    sync and no shape-dependent host branch, and reads its static
+    buffers at replay."""
+    from segtpu_torch.core.dist import (all_gather_rows, all_reduce_,
+                                        all_reduce_sum, broadcast_)
+    group = nccl_world_one.get_group(0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    shapes = [(1 << 20,), (2, 96), (4096,), (3, 5, 7)]
+
+    def calls(a, b, c, d):
+        return (all_reduce_(a, group), all_reduce_sum(b, group),
+                broadcast_(c, 0, group), all_gather_rows(d, 3, group))
+
+    static = [torch.randn(s, generator=gen, device="cuda") for s in shapes]
+    calls(*[t.clone() for t in static])
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        calls(*static)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = calls(*static)
+    for _ in range(2):
+        fresh = [torch.randn(s, generator=gen, device="cuda") for s in shapes]
+        for t, f in zip(static, fresh):
+            t.copy_(f)
+        graph.replay()
+        want = calls(*fresh)
+        torch.cuda.synchronize()
+        for got, w in zip(outs, want):
+            assert torch.equal(got, w)
+
+
+def _fused_dp_run(engine, mesh, data, **kw):
+    from segtpu_torch.train.fused_run import run_training_fused
+    state = engine.init_state(torch.Generator().manual_seed(0), 1e-3, 1e-5)
+    return run_training_fused(
+        engine, state, *data, batch_size=4, num_epochs=3, lr0=1e-3,
+        generator=torch.Generator("cuda").manual_seed(1),
+        scheduler_params=dict(factor=0.5, patience=0, threshold=0.5,
+                              min_lr=0.0), mesh=mesh, **kw)
+
+
+def test_dp_fused_run_at_world_one_equals_the_one_process_run(
+        nccl_world_one):
+    """``run_training_fused`` on an NCCL mesh of one rank (resnet_tiny with
+    attention, 64², f32) captures graphs of its own, keyed apart from the
+    one-process runner's, and its histories, decisions and final weights
+    equal the one-process fused run's bit for bit (at world 1 the
+    data-parallel step is the plain step); a second run of equal shapes
+    replays without capturing."""
+    from segtpu_torch.kernels import reset_launch_counts
+    from segtpu_torch.train import fused_run
+    from segtpu_torch.train.engine import get_engine
+    from segtpu_torch.train.loop import _materialize
+    engine = get_engine({"backbone": "resnet_tiny", "use_attention": True,
+                         "loss_fn": "combo"}, device="cuda")
+    imgs, masks = _blob_arrays(16, 64, 3)
+    data = (*_materialize(imgs[:10], masks[:10], device="cuda"),
+            *_materialize(imgs[10:], masks[10:], device="cuda"))
+    fused_run.RUNNERS.clear()
+    one = _fused_dp_run(engine, None, data)
+    reset_launch_counts()
+    dp = _fused_dp_run(engine, nccl_world_one, data)
+    keys = fused_run.RUNNERS.keys()
+    assert len(keys) == 2 and keys[0] != keys[1]
+    runner = fused_run.RUNNERS[keys[-1]]
+    assert runner.stats["captures"] == 1 and runner.placement is not None
+    warm = runner.stats["warmup_calls"]
+    val = dp["epochs_ran"] * 2 + warm["eval_full"] + warm["eval_rem"]
+    assert launch_counts()["attention_gate"] == 4 * val
+    for key in ("train_history", "val_history", "lr_history", "best_epoch",
+                "epochs_ran"):
+        assert dp[key] == one[key], key
+    da, db = (r["final_state"].model.state_dict() for r in (dp, one))
+    assert all(torch.equal(da[k], db[k]) for k in da)
+    again = _fused_dp_run(engine, nccl_world_one, data)
+    assert runner.stats["captures"] == 1 and runner.stats["runs"] == 2
+    assert again["val_history"] == dp["val_history"]
+
+
+def test_dp_fused_run_captures_its_collectives_at_world_one(
+        nccl_world_one):
+    """The DP fused run on an NCCL mesh of one rank with the one-rank group
+    kept in every step (``chip_smoke.one_rank_sync``; ``local_batch``
+    drops it otherwise): the BatchNorms' all-reduces, the gathers and the
+    gradients' all-reduce are called while the runner warms up and
+    captures, none while a second run replays, and the captured run
+    equals the same steps called eagerly bit for bit."""
+    from chip_smoke import one_rank_sync
+    from segtpu_torch.data.loader import DeviceDataLoader
+    from segtpu_torch.train import fused_run
+    from segtpu_torch.train.engine import get_engine
+    from segtpu_torch.train.loop import _materialize
+    engine = get_engine({"backbone": "resnet_tiny", "use_attention": True,
+                         "loss_fn": "combo"}, device="cuda")
+    imgs, masks = _blob_arrays(16, 64, 5)
+    data = (*_materialize(imgs[:10], masks[:10], device="cuda"),
+            *_materialize(imgs[10:], masks[10:], device="cuda"))
+    group = nccl_world_one.get_group(0)
+    fused_run.RUNNERS.clear()
+    first, again_calls, eager_calls = {}, {}, {}
+    with one_rank_sync(group, first):
+        got = _fused_dp_run(engine, nccl_world_one, data)
+    with one_rank_sync(group, again_calls):
+        again = _fused_dp_run(engine, nccl_world_one, data)
+    (key,) = fused_run.RUNNERS.keys()
+    assert fused_run.RUNNERS[key].stats["captures"] == 1
+    assert first["all_reduce"] > 0 and first["all_gather"] > 0
+    assert not again_calls
+    state = engine.init_state(torch.Generator().manual_seed(0), 1e-3, 1e-5)
+    runner = fused_run.FusedRunner(engine, state, 10, 6, graphs=False,
+                                   placement=fused_run.Placement(
+                                       nccl_world_one))
+    with one_rank_sync(group, eager_calls):
+        want = runner.run(state, DeviceDataLoader(*data[:2], 4),
+                          DeviceDataLoader(*data[2:], 4, shuffle=False),
+                          torch.Generator("cuda").manual_seed(1), 3, 1e-3,
+                          dict(factor=0.5, patience=0, threshold=0.5,
+                               min_lr=0.0), 7, 1e-3)
+    assert eager_calls["all_reduce"] > 0
+    for out in (again, want):
+        for key in ("train_history", "val_history", "lr_history",
+                    "best_epoch", "epochs_ran"):
+            assert out[key] == got[key], key
+        da, db = (r["final_state"].model.state_dict() for r in (out, got))
+        assert all(torch.equal(da[k], db[k]) for k in da)
+
+
+def test_fused_run_refuses_capture_on_a_gloo_mesh(deterministic, tmp_path):
+    """On gloo a CUDA tensor goes through host memory, which a CUDA graph
+    cannot capture: the runner raises before capturing anything (no
+    eager fallback) and caches nothing; ``graphs=False`` runs the same
+    steps eagerly there."""
+    from segtpu_torch.core.dist import create_mesh, init_process_group
+    from segtpu_torch.data.loader import DeviceDataLoader
+    from segtpu_torch.train import fused_run
+    from segtpu_torch.train.engine import get_engine
+    from segtpu_torch.train.loop import _materialize
+    engine = get_engine({"backbone": "resnet_tiny", "use_attention": True,
+                         "loss_fn": "combo"}, device="cuda")
+    imgs, masks = _blob_arrays(8, 64, 4)
+    data = (*_materialize(imgs[:6], masks[:6], device="cuda"),
+            *_materialize(imgs[6:], masks[6:], device="cuda"))
+    init_process_group(f"file://{tmp_path}/rdzv", 1, 0, device="cuda:0",
+                       backend="gloo")
+    try:
+        mesh = create_mesh(device="cuda")
+        fused_run.RUNNERS.clear()
+        with pytest.raises(RuntimeError, match="cannot capture"):
+            _fused_dp_run(engine, mesh, data)
+        assert len(fused_run.RUNNERS) == 0
+        state = engine.init_state(torch.Generator().manual_seed(0), 1e-3,
+                                  1e-5)
+        runner = fused_run.FusedRunner(
+            engine, state, 6, 2, graphs=False,
+            placement=fused_run.Placement(mesh))
+        out = runner.run(state, DeviceDataLoader(*data[:2], 4),
+                         DeviceDataLoader(*data[2:], 4, shuffle=False),
+                         torch.Generator("cuda").manual_seed(1), 1, 1e-3,
+                         None, 7, 1e-3)
+        assert out["epochs_ran"] == 1 and runner.stats["captures"] == 0
+    finally:
+        torch.distributed.destroy_process_group()
+
+
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
 def test_stem_s2d_equals_the_plain_stem_on_the_card(cuda, dtype):
     """The ResNets' stem on a 512² batch: its space-to-depth form (a

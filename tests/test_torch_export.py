@@ -33,7 +33,6 @@ import jax
 
 from segtpu.infer import export as jexport
 from segtpu.models.unet import UNetWithBackbone as JaxUNet
-from segtpu.models.unet import create_model_state
 from segtpu_torch.api import Segmenter
 from segtpu_torch.infer import export as texport
 from segtpu_torch.infer.predict import nhwc_forward, predict_proba
@@ -41,6 +40,7 @@ from segtpu_torch.infer.tiled import _halo_many, make_tiled_predictor
 from segtpu_torch.models.convert import state_dict_from_jax
 from segtpu_torch.models.unet import UNetWithBackbone
 from segtpu_torch.train.engine import TrainState
+from torch_jax_init import drawn_variables
 
 ROOT = Path(__file__).resolve().parent.parent
 SIZE = 32
@@ -57,7 +57,7 @@ def _one_torch_thread():
 def _pair(backbone, use_attention, n_classes=1, seed=0):
     jm = JaxUNet(backbone=backbone, use_attention=use_attention,
                  n_classes=n_classes)
-    p, s = create_model_state(jm, jax.random.key(seed), (1, SIZE, SIZE, 1))
+    p, s = drawn_variables(jm, seed, (1, SIZE, SIZE, 1))
     r = np.random.default_rng(seed + 11)
     s = jax.tree_util.tree_map_with_path(
         lambda k, v: (r.normal(size=v.shape) * 0.05 if k[-1].key == "mean"

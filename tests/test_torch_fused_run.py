@@ -10,6 +10,9 @@ capture on the card, eagerly, with the same device-side bookkeeping.
   thresholded metrics within ``tests/test_fused_run.py``'s 2e-4, both
   grown per epoch as that test grows its bar (×(1 + 30·epoch)): Adam
   carries the packages' f32 rounding differences into the next epoch;
+  the same run on a mesh of two gloo ranks (``tests/torch_dist_worker.py``,
+  ROADMAP A23) by the same bars, its ranks bit for bit equal (the float64
+  data-parallel run is in ``tests/test_torch_fused_dp.py``);
 - against the port's own stepwise ``train_model``: histories, LR history
   and the final ``state_dict`` equal bit for bit, for every optimizer
   (both loops step the same ``DeviceOptimizer``);
@@ -18,7 +21,8 @@ capture on the card, eagerly, with the same device-side bookkeeping.
   device; ``tests/torch_optim_reference.py``) bit for bit, so that the
   stepwise loop keeps its numbers;
 - early stopping, best weights, routing, logs, the runner cache and
-  ``LRUCache`` against the JAX package's.
+  ``LRUCache`` against the JAX package's; a float64 state trained in
+  float64 (ROADMAP C4).
 
 The card's side (capture, replays, launch counts, the gates' folds) is in
 ``tests/test_torch_cuda.py``.
@@ -111,36 +115,54 @@ def _seeded_state(engine):
 
 # ------------------------------------------------ against the JAX package
 
-def test_fused_run_matches_jax():
-    """4 training images at batch 4 (one batch, so the order that the
-    packages' different generators shuffle it in does not matter) and 2
-    validation images (a remainder); the plateau scheduler cuts unless the
-    IoU rises by half; early stopping at ``min_delta`` 0.9 and patience 2
-    stops the 4-epoch run after 3. Without attention: the JAX package's
-    compile of its fused program takes most of this file's time, and the
-    gates' path is held against the stepwise loop below and on the
-    card."""
+# 4 training images at batch 4 (one batch, so the order that the packages'
+# different generators shuffle it in does not matter) and 2 validation
+# images (a remainder); the plateau scheduler cuts unless the IoU rises by
+# half; early stopping at ``min_delta`` 0.9 and patience 2 stops the
+# 4-epoch run after 3. Without attention: the JAX package's compile of its
+# fused program takes most of this file's time, and the gates' path is
+# held against the stepwise loop below and on the card.
+JAX_RUN = dict(batch_size=4, num_epochs=4, lr0=1e-3, scheduler_params=SCHED,
+               es_patience=2, es_min_delta=0.9)
+
+
+@pytest.fixture(scope="module")
+def jax_run(tmp_path_factory):
+    """The inputs, the JAX package's fused run on them, and the port's
+    data-parallel fused run of them on two gloo ranks
+    (``tests/torch_dist_worker.py``), started first and read last."""
+    from concurrent.futures import ThreadPoolExecutor
+    from torch_dist_worker import launch
     r = np.random.default_rng(0)
     ti, tm = _blobs(r, 4)
     vi, vm = _blobs(r, 2)
     ti_t, tm_t = _materialize(ti, tm, device="cpu")
     vi_t, vm_t = _materialize(vi, vm, device="cpu")
-    nhwc = lambda t: jnp.asarray(t.permute(0, 2, 3, 1).numpy())
-    kw = dict(batch_size=4, num_epochs=4, lr0=1e-3, scheduler_params=SCHED,
-              es_patience=2, es_min_delta=0.9)
-
-    j_engine = jax_get_engine({"backbone": "resnet_tiny",
-                               "use_attention": False, "loss_fn": "combo"})
     p, s = _jax_init(False)
-    j_state = j_engine.state_from(p, s, 1e-3, 1e-5)
-    want = jax_fused(j_engine, j_state, nhwc(ti_t), nhwc(tm_t), nhwc(vi_t),
-                     nhwc(vm_t), epoch_keys=jax.random.split(
-                         jax.random.key(1), 4), **kw)
+    tmp = tmp_path_factory.mktemp("fused_dp_jax")
+    torch.save({"state_dict": state_dict_from_jax(p, s, "resnet_tiny", False,
+                                                  device="cpu"),
+                "ti": ti_t, "tm": tm_t, "vi": vi_t, "vm": vm_t,
+                "dtype": torch.float32, "lr": 1e-3, "wd": 1e-5,
+                "cfg": {"use_attention": False}, "run": JAX_RUN, "seed": 1},
+               tmp / "inputs.pt")
+    with ThreadPoolExecutor(1) as pool:
+        ranks = pool.submit(launch, "fused_dp_jax", 2, tmp, 240)
+        nhwc = lambda t: jnp.asarray(t.permute(0, 2, 3, 1).numpy())
+        j_engine = jax_get_engine({"backbone": "resnet_tiny",
+                                   "use_attention": False,
+                                   "loss_fn": "combo"})
+        want = jax_fused(j_engine, j_engine.state_from(p, s, 1e-3, 1e-5),
+                         nhwc(ti_t), nhwc(tm_t), nhwc(vi_t), nhwc(vm_t),
+                         epoch_keys=jax.random.split(jax.random.key(1), 4),
+                         **JAX_RUN)
+        return {"inputs": (ti_t, tm_t, vi_t, vm_t), "want": want,
+                "ranks": ranks.result()}
 
-    engine = _engine(use_attention=False)
-    got = run_training_fused(engine, _port_state(engine), ti_t, tm_t, vi_t,
-                             vm_t, generator=torch.Generator().manual_seed(1),
-                             **kw)
+
+def _check_against(got, want):
+    """Every decision exactly equal; losses within rtol 1e-4 and the
+    thresholded metrics within 2e-4, grown per epoch."""
     assert got["epochs_ran"] == want["epochs_ran"] == 3
     assert got["lr_history"] == pytest.approx(want["lr_history"], rel=1e-6)
     assert got["best_epoch"] == want["best_epoch"]
@@ -153,6 +175,26 @@ def test_fused_run_matches_jax():
             for k in ("iou", "f1", "precision", "recall", "accuracy"):
                 np.testing.assert_allclose(g[k], w[k], atol=2e-4 * grow)
     np.testing.assert_allclose(got["best_iou"], want["best_iou"], atol=1e-2)
+
+
+def test_fused_run_matches_jax(jax_run):
+    engine = _engine(use_attention=False)
+    got = run_training_fused(engine, _port_state(engine), *jax_run["inputs"],
+                             generator=torch.Generator().manual_seed(1),
+                             **JAX_RUN)
+    _check_against(got, jax_run["want"])
+
+
+def test_dp_fused_run_matches_jax(jax_run):
+    """The same run on a mesh of two gloo ranks (each with 2 of the 4
+    training rows and 1 of the 2 validation rows) against the JAX
+    package's single-device run and the port's one-process run, by the
+    bars above; both ranks end with the same histories and weights, bit
+    for bit."""
+    r0, r1 = jax_run["ranks"]
+    _check_against(r0["dp_run"], jax_run["want"])
+    _check_against(r0["dp_run"], r0["one"])
+    assert r0["dp"] == r1["dp"]
 
 
 # ------------------------------------------- against the stepwise loop
@@ -269,6 +311,35 @@ def test_optimizer_refuses_a_missing_gradient():
     p[0].grad = torch.ones(3)
     with pytest.raises(RuntimeError, match="every parameter"):
         opt.step()
+
+
+def test_fused_run_trains_a_float64_state_in_float64():
+    """ROADMAP C4: the runner builds its model in the state's parameter
+    dtype, so a float64 state trains in float64, as it does stepwise: one
+    fused epoch equals the engine's float64 epoch from the same state and
+    generator, bit for bit (a runner in f32 parts from it by f32's
+    rounding)."""
+    from segtpu_torch.data.loader import DeviceDataLoader
+    engine = _engine(use_attention=False)
+    r = np.random.default_rng(4)
+    ti, tm = (t.double() for t in _materialize(*_blobs(r, 6), device="cpu"))
+    vi, vm = (t.double() for t in _materialize(*_blobs(r, 3), device="cpu"))
+    states = []
+    for _ in range(2):
+        st = _seeded_state(engine)
+        st.model.double()
+        states.append(TrainState(st.model, engine.make_optimizer(
+            st.model, 1e-3, 1e-5)))
+    out = run_training_fused(engine, states[0], ti, tm, vi, vm,
+                             batch_size=4, num_epochs=1, lr0=1e-3,
+                             generator=torch.Generator().manual_seed(1))
+    ref, _, _ = engine.run_train_and_eval_epoch_async(
+        states[1], DeviceDataLoader(ti, tm, 4),
+        DeviceDataLoader(vi, vm, 4, shuffle=False), 1e-3,
+        torch.Generator().manual_seed(1))
+    got, want = (s.model.state_dict() for s in (out["final_state"], ref))
+    assert got["conv_final.weight"].dtype == torch.float64
+    assert all(torch.equal(got[k], want[k]) for k in want)
 
 
 def test_early_stopping_cuts_the_run():

@@ -12,17 +12,17 @@ import jax
 from segtpu.infer.predict import predict as jax_predict
 from segtpu.infer.predict import predict_proba as jax_predict_proba
 from segtpu.models.unet import UNetWithBackbone as JaxUNet
-from segtpu.models.unet import create_model_state
 from segtpu_torch import resolve_device
 from segtpu_torch.infer.predict import predict, predict_proba
 from segtpu_torch.models.convert import state_dict_from_jax
 from segtpu_torch.models.unet import UNetWithBackbone
+from torch_jax_init import drawn_variables
 
 
 def _pair(n_classes):
     jm = JaxUNet(backbone="resnet_tiny", use_attention=True,
                  n_classes=n_classes, fuse_gate=True)
-    p, s = create_model_state(jm, jax.random.key(n_classes), (1, 32, 32, 1))
+    p, s = drawn_variables(jm, n_classes, (1, 32, 32, 1))
     r = np.random.default_rng(5)
     s = jax.tree_util.tree_map_with_path(
         lambda k, a: (r.normal(size=a.shape) * 0.05 if k[-1].key == "mean"

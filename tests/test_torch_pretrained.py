@@ -118,11 +118,17 @@ def _assert_same_tensors(model, params, stats, backbone):
             assert torch.equal(v, want[k]), k
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_forward(backbone):
+    """The JAX model's jitted eval forward, one compile per backbone."""
+    jm = JaxUNet(backbone=backbone, use_attention=True)
+    return jax.jit(lambda v, x: jm.apply(v, x, train=False))
+
+
 def _assert_same_logits(model, params, stats, backbone):
     x = np.random.default_rng(5).uniform(0, 1, (2, S, S, 1)).astype(
         np.float32)
-    jm = JaxUNet(backbone=backbone, use_attention=True)
-    want = np.asarray(jax.jit(lambda v, x: jm.apply(v, x, train=False))(
+    want = np.asarray(_jax_forward(backbone)(
         {"params": params, "batch_stats": stats}, jnp.asarray(x)))
     with torch.no_grad():
         got = model.eval()(torch.from_numpy(x).permute(0, 3, 1, 2)

@@ -18,16 +18,15 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-import jax
 import jax.numpy as jnp
 
 from segtpu.core.dist import create_mesh as jax_create_mesh
 from segtpu.models.unet import UNetWithBackbone as JaxUNet
-from segtpu.models.unet import create_model_state
 from segtpu.parallel import spatial_predict as jax_spatial_predict
 from segtpu.train.engine import TrainState as JaxTrainState
 from segtpu_torch.models.convert import state_dict_from_jax
 from torch_dist_worker import _conv_stack, launch
+from torch_jax_init import drawn_variables
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -45,7 +44,7 @@ def run(tmp_path_factory):
     k1 = rng.normal(size=(3, 3, 1, 4), scale=0.5).astype(np.float32)
     k2 = rng.normal(size=(3, 3, 4, 2), scale=0.5).astype(np.float32)
     jm = JaxUNet(backbone="resnet_tiny", use_attention=True)
-    params, stats = create_model_state(jm, jax.random.key(0), (1, 64, 64, 1))
+    params, stats = drawn_variables(jm, 0, (1, 64, 64, 1))
     slide = np.random.default_rng(2).random((128, 64)).astype(np.float32)
     mesh = jax_create_mesh(axis_sizes=(2,))
     want = jax_spatial_predict(jm, JaxTrainState(params, stats, None), slide,

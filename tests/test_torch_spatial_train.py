@@ -26,8 +26,6 @@ Bars, and why:
   160×; their statistics and gradients miss by 1e7 and more).
 """
 
-from concurrent.futures import ThreadPoolExecutor
-
 import numpy as np
 import pytest
 import torch
@@ -59,8 +57,8 @@ def _one_torch_thread():
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """The 2×2 mesh's run (4 ranks) and the 1×2 mesh's (2 ranks), started
-    on the JAX model's initial weights, side by side. The JAX package's
+    """The 2×2 mesh's run (4 ranks), then the 1×2 mesh's (2 ranks), started
+    on the JAX model's initial weights. The JAX package's
     float64 step on the whole batch is computed first and handed to the
     ranks with their inputs, which compare their steps with it."""
     tmp = tmp_path_factory.mktemp("spatial_train")
@@ -88,10 +86,10 @@ def runs(tmp_path_factory):
                     "y2": _nchw((x2 > 0.6).astype(np.float64)),
                     "lr": LR, "wd": WD, "cfg": CFG, "want": want},
                    tmp / "inputs.pt")
-    with ThreadPoolExecutor(2) as pool:
-        ranks = {name: pool.submit(launch, name, world, tmp)
-                 for name, world in (("mesh2d", 4), ("bands", 2))}
-        return {k: f.result() for k, f in ranks.items()}
+    # one launch at a time, so that the suite's other workers keep their
+    # cores
+    return {name: launch(name, world, tmp)
+            for name, world in (("mesh2d", 4), ("bands", 2))}
 
 
 def test_mesh_step_matches_jax_single_device_step_in_float64(runs):

@@ -29,11 +29,11 @@ import jax.numpy as jnp
 
 from segtpu.infer import tiled as jt
 from segtpu.models.unet import UNetWithBackbone as JaxUNet
-from segtpu.models.unet import create_model_state
 from segtpu_torch.infer import tiled as tt
 from segtpu_torch.infer.predict import nhwc_forward
 from segtpu_torch.models.convert import state_dict_from_jax
 from segtpu_torch.models.unet import UNetWithBackbone
+from torch_jax_init import drawn_variables
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -133,7 +133,7 @@ def _pair(use_attention, backbone="resnet_tiny", size=32, seed=0,
     statistics randomized so that the inference BatchNorms do work."""
     jm = JaxUNet(backbone=backbone, use_attention=use_attention,
                  n_classes=n_classes)
-    p, s = create_model_state(jm, jax.random.key(seed), (1, size, size, 1))
+    p, s = drawn_variables(jm, seed, (1, size, size, 1))
     r = np.random.default_rng(seed + 5)
     s = jax.tree_util.tree_map_with_path(
         lambda k, v: (r.normal(size=v.shape) * 0.05 if k[-1].key == "mean"

@@ -26,13 +26,13 @@ import jax.numpy as jnp
 from segtpu.infer import tta as jtta
 from segtpu.infer.tiled import tiled_predict as jax_tiled_predict
 from segtpu.models.unet import UNetWithBackbone as JaxUNet
-from segtpu.models.unet import create_model_state
 from segtpu_torch.infer import tta as ttta
 from segtpu_torch.infer.predict import predict_proba
 from segtpu_torch.infer.tiled import tiled_predict
 from segtpu_torch.models import attention as attention_module
 from segtpu_torch.models.convert import state_dict_from_jax
 from segtpu_torch.models.unet import UNetWithBackbone
+from torch_jax_init import drawn_variables
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -48,7 +48,7 @@ def pair():
     """A JAX U-Net and the port's on the same weights, BatchNorm
     statistics randomized."""
     jm = JaxUNet(backbone="resnet_tiny", use_attention=True)
-    p, s = create_model_state(jm, jax.random.key(3), (1, 32, 32, 1))
+    p, s = drawn_variables(jm, 3, (1, 32, 32, 1))
     r = np.random.default_rng(8)
     s = jax.tree_util.tree_map_with_path(
         lambda k, v: (r.normal(size=v.shape) * 0.05 if k[-1].key == "mean"

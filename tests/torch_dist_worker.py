@@ -492,6 +492,133 @@ def scenario_bands(inputs, rank, world):
     return out
 
 
+def _fused(engine, inputs, size="", **kw):
+    """``run_training_fused`` from the inputs' float64 weights on the
+    inputs' training and validation sets (``size`` picks the 64² ones):
+    its decisions and histories, and the final and the returned (best)
+    weights."""
+    from segtpu_torch.train.fused_run import run_training_fused
+    out = run_training_fused(
+        engine, _state(engine, inputs, inputs["dtype"]), inputs["ti" + size],
+        inputs["tm" + size], inputs["vi" + size], inputs["vm" + size],
+        generator=torch.Generator().manual_seed(inputs["seed"]),
+        **inputs["run"], **kw)
+    res = {k: out[k] for k in ("train_history", "val_history", "lr_history",
+                               "best_iou", "best_found", "best_epoch",
+                               "epochs_ran")}
+    res["sd"] = _sd(out["final_state"])
+    res["best_sd"] = _sd(out["state"])
+    return res
+
+
+def _run_digest(res) -> dict:
+    """A run's decisions and histories, and its weights hashed."""
+    return {**{k: v for k, v in res.items() if not k.endswith("sd")},
+            "sd": _digest(res["sd"]), "best_sd": _digest(res["best_sd"])}
+
+
+def _run_errors(got, want) -> dict:
+    """A run's final weights against another's: parameters against the
+    largest parameter, the worst running statistic against its tensor's
+    largest entry."""
+    sd, ref = got["sd"], want["sd"]
+    params = [k for k in ref if ref[k].is_floating_point()
+              and "running" not in k]
+    return {"params": _rel(sd, ref, params),
+            "stats": max(_rel(sd, ref, [k]) for k in ref if "running" in k)}
+
+
+def scenario_fused_dp(inputs, rank, world):
+    """The data-parallel fused run (float64): on the world's 1-D ``data``
+    mesh from ``with mesh:`` and again with ``mesh=``, on the 1×2 (data ×
+    spatial) mesh at 64², the two controls (rank-local BatchNorm
+    statistics; the gradients' mean in place of their sum), the 1-D
+    mesh's run again after the process group is made anew, and the
+    one-process runs the test holds them to; the runner cache after each.
+    Rank 0 returns the runs, every rank their digests."""
+    from unittest import mock
+    from segtpu_torch.core.dist import create_mesh, init_process_group
+    from segtpu_torch.parallel.data_parallel import StepSync
+    from segtpu_torch.train import fused_run
+
+    engine = _engine(inputs["cfg"])
+    mesh = create_mesh(device="cpu")
+    runs, cache = {}, {}
+    with mesh:
+        runs["dp"] = _fused(engine, inputs)
+    runs["dp_again"] = _fused(engine, inputs, mesh=mesh)
+    (dp_key,) = fused_run.RUNNERS.keys()
+    cache["dp"] = dict(fused_run.RUNNERS[dp_key].stats)
+    runs["one"] = _fused(engine, inputs)
+    cache["keys"] = len(fused_run.RUNNERS.keys())
+    cache["one_runs"] = fused_run.RUNNERS[fused_run.RUNNERS.keys()[-1]] \
+        .stats["runs"]
+    cache["dp_runs_after"] = fused_run.RUNNERS[dp_key].stats["runs"]
+
+    # each rank's own count (1 on an empty rank, whose sums are zeros)
+    local = lambda self, x: max(1, x.shape[0] * x.shape[2] * x.shape[3])
+    summed = StepSync.reduce_gradients
+
+    def averaged(self, params):
+        params = list(params)       # the engine passes a generator
+        summed(self, params)
+        for p in params:
+            if p.grad is not None:
+                p.grad.div_(world)
+
+    with mock.patch.object(StepSync, "all_reduce", lambda self, t: t), \
+            mock.patch.object(StepSync, "count", local):
+        runs["rank_local_stats"] = _fused(engine, inputs, mesh=mesh)
+    with mock.patch.object(StepSync, "reduce_gradients", averaged):
+        runs["mean_gradients"] = _fused(engine, inputs, mesh=mesh)
+
+    bands = _bands_mesh(world)
+    runs["bands"] = _fused(engine, inputs, "64", mesh=bands,
+                           spatial_axis="spatial")
+    if rank == 0:
+        runs["bands_one"] = _fused(engine, inputs, "64")
+
+    # the process group destroyed and made anew, a mesh of the same shape
+    # on it: its run gets a runner of its own, not the cached one that
+    # holds the destroyed group
+    _fused(engine, inputs, mesh=mesh)
+    last = lambda: fused_run.RUNNERS[fused_run.RUNNERS.keys()[-1]]
+    stale = last()
+    stale_runs = stale.stats["runs"]
+    torch.distributed.destroy_process_group()
+    init_process_group(f"file://{inputs['tmp']}/rdzv_fused_dp_anew", world,
+                       rank, device="cpu")
+    runs["anew"] = _fused(engine, inputs, mesh=create_mesh(device="cpu"))
+    cache["anew"] = dict(own_runner=last() is not stale,
+                         runs=last().stats["runs"],
+                         stale_run_again=stale.stats["runs"] != stale_runs)
+    out = {"digests": {k: _run_digest(v) for k, v in runs.items()},
+           "cache": cache}
+    if rank == 0:
+        out["runs"] = {k: runs[k] for k in ("dp", "one", "rank_local_stats",
+                                            "mean_gradients")}
+        out["bands"] = _run_errors(runs["bands"], runs["bands_one"])
+        out["bands_decisions"] = {
+            k: (runs["bands"][k], runs["bands_one"][k])
+            for k in ("lr_history", "best_epoch", "epochs_ran",
+                      "best_found")}
+    return out
+
+
+def scenario_fused_dp_jax(inputs, rank, world):
+    """The data-parallel fused run of ``tests/test_torch_fused_run.py``'s
+    JAX comparison (f32): its histories and decisions on every rank, with
+    its weights hashed, and rank 0's one-process run."""
+    from segtpu_torch.core.dist import create_mesh
+    engine = _engine(inputs["cfg"])
+    dp = _fused(engine, inputs, mesh=create_mesh(device="cpu"))
+    out = {"dp": _run_digest(dp)}
+    if rank == 0:
+        out["dp_run"] = dp
+        out["one"] = _fused(engine, inputs)
+    return out
+
+
 def main(argv) -> int:
     scenario, world, rank, tmp = argv[0], int(argv[1]), int(argv[2]), argv[3]
     torch.set_num_threads(1)
@@ -499,6 +626,7 @@ def main(argv) -> int:
     init_process_group(f"file://{tmp}/rdzv_{scenario}", world, rank,
                        device="cpu")
     inputs = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=False)
+    inputs["tmp"] = tmp
     try:
         out = globals()[f"scenario_{scenario}"](inputs, rank, world)
         torch.save(out, os.path.join(tmp, f"{scenario}_{rank}.pt"))
